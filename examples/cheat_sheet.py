@@ -1,11 +1,11 @@
-"""qups_tpu cheat sheet — an executable tour of the API surface (the
+"""qups_jax cheat sheet — an executable tour of the API surface (the
 reference's ``cheat_sheet.m`` / ``example_.m``, run end-to-end by
 ``tests/test_examples.py``). Sizes are kept small so it runs in seconds on
-CPU; scale them up freely on TPU.
+CPU; scale them up freely on a GPU.
 """
 import numpy as np
 
-import qups_tpu as q
+import qups_jax as q
 
 # --------------------------------------------------------------- definitions
 # Transducers: linear / convex / matrix / generic (+ named presets)
@@ -39,7 +39,7 @@ us = q.UltrasoundSystem(tx=xdc, rx=xdc, seq=seq_pw, scan=scan, fs=25e6)
 # ---------------------------------------------------------------- simulation
 chd = us.greens(scat)                   # Green's-function sim + focusTx
 print("ChannelData:", chd.data.shape, "fs =", chd.fs)
-# large diffuse clouds: bf16 phasor GEMMs (~4x MXU rate, ~0.2% rel err)
+# large diffuse clouds: bf16 phasor GEMMs (f32 accumulation, ~0.2% rel err)
 _ = us.greens(scat, precision="bf16")
 
 # frequency-domain point sim w/ element directivity (the MUST analog)
@@ -63,7 +63,8 @@ b4, bscan = us.bfMigration(chd)         # Stolt f-k migration (PW only)
 tau_rx, tau_tx = us.das_delay_tables()
 b5 = us.bfDASLUT(chd, tau_rx, tau_tx)   # bring-your-own-delays
 
-# apodization (dense generators, or fused in-kernel descriptors on TPU)
+# apodization (dense generators, or fused descriptors the GPU kernel
+# evaluates in registers)
 apod = us.ap_aperture_growth(f=1.5)
 b6 = us.DAS(chd, apod=(q.Fused("aperture_growth", f=1.5),), method="linear")
 
@@ -103,15 +104,15 @@ chd_kw, fields = us_kw.kspaceFirstOrder(
 print("fdtd traces:", chd_kw.data.shape, "field snapshots:", fields.shape)
 
 # ---------------------------------------------------------------- profiling
-from qups_tpu.utils import Timer  # noqa: E402
+from qups_jax.utils import Timer  # noqa: E402
 tm = Timer()
 with tm("das"):
     _ = us.DAS(chd, method="linear")
 print("DAS wall:", round(tm.times["das"], 3), "s")
 
 # ------------------------------------------------------------ serialization
-from qups_tpu import interop  # noqa: E402
-from qups_tpu.io import save_checkpoint, load_checkpoint  # noqa: E402
+from qups_jax import interop  # noqa: E402
+from qups_jax.io import save_checkpoint, load_checkpoint  # noqa: E402
 import tempfile, os  # noqa: E402
 with tempfile.TemporaryDirectory() as d:
     interop.save_uff(os.path.join(d, "demo.uff"), chd=chd, xdc=xdc,
@@ -131,7 +132,7 @@ assert np.abs(np.asarray(chd_att.data)).max() \
     < np.abs(np.asarray(us.greens(scat, impl="freq").data)).max()
 
 # transmit synthesis via the per-bin frequency GEMM (exact band-limited
-# interpolation; the TPU default for focusTx/greens/calc_scat_multi)
+# interpolation; the GPU default for focusTx/greens/calc_scat_multi)
 chd_fsa = us.replace(seq=seq_fsa).greens(scat)
 enc = us.focusTx(chd_fsa, seq_pw, method="freq")
 assert enc.data.shape[2] == seq_pw.num_pulse
@@ -148,7 +149,7 @@ seq_walk = q.Sequence(type="FC", focus=seq_fc.focus_array[:, :apd_walk.shape[1]]
 # multi-chip: shard channel data over a (rx, tx) device mesh; on one
 # device this is a no-op mesh (the same code scales to pods)
 import jax  # noqa: E402
-from qups_tpu.parallel import make_mesh, das_sharded  # noqa: E402
+from qups_jax.parallel import make_mesh, das_sharded  # noqa: E402
 mesh = make_mesh(jax.devices()[:1], axes=("rx",), shape=(1,))
 pv_, nv_, model_ = us._tx_geometry()
 bsh = das_sharded(mesh, np.asarray(chd.data), us._pixels(),
@@ -158,17 +159,14 @@ bsh = das_sharded(mesh, np.asarray(chd.data), us._pixels(),
 assert np.isfinite(np.asarray(bsh)).all()
 
 # in-mesh coherence: the aperture reduction runs INSIDE the shard_map —
-# cross-chip traffic is two image psums instead of the (I, N) volume
-from qups_tpu.parallel import das_sharded_pallas  # noqa: E402
+# the devices exchange two image psums instead of the (I, N) volume
 mesh2 = make_mesh(jax.devices()[:1], axes=("rx",), shape=(1,))
 xr = np.ascontiguousarray(np.real(np.asarray(chd.data)).astype(np.float32))
-cf = das_sharded_pallas(
+cf = das_sharded(
     mesh2, xr, us._pixels(), us.rx.positions().T.astype(np.float32),
     pv_.astype(np.float32), nv_.astype(np.float32),
-    np.broadcast_to(np.asarray(chd.t0_host, np.float32).reshape(-1),
-                    (xr.shape[2],)), 1 / c0, fs=float(chd.fs),
-    tx_model=model_, im_shape=tuple(us.scan.shape),
-    interpret=jax.devices()[0].platform == "cpu", post="cohfac")
+    np.asarray(chd.t0_host, np.float32).reshape(-1), 1 / c0,
+    fs=float(chd.fs), tx_model=model_, method="linear", post="cohfac")
 assert cf.shape[0] == us._pixels().shape[0]
 assert float(np.max(np.asarray(cf))) <= 1.0 + 1e-6
 
@@ -177,7 +175,7 @@ print("cheat sheet OK")
 # ---------------------------------------------------------------- round 5
 # transmit-sharded full-wave sim: the reference's parfor-over-transmits
 # axis as a mesh (one PSTD stepper per local transmit, zero collectives)
-from qups_tpu.parallel import fdtd_sharded  # noqa: E402
+from qups_jax.parallel import fdtd_sharded  # noqa: E402
 cmapf = np.full((48, 48), 1500.0, np.float32)
 rmapf = np.full((48, 48), 1000.0, np.float32)
 sigf = np.zeros((4, 32, 2), np.float32)
@@ -189,7 +187,7 @@ recf = fdtd_sharded(make_mesh(jax.devices()[:1], axes=("tx",)),
 assert recf.shape == (4, 32, 1, 48)
 
 # REFoCUS decode with the bin-sharded operator + rx-sharded apply
-from qups_tpu.parallel import refocus_sharded  # noqa: E402
+from qups_jax.parallel import refocus_sharded  # noqa: E402
 xr5 = np.asarray(np.real(np.asarray(chd.data)), np.float32)
 V5 = xr5.shape[2]
 taur5 = np.zeros((V5, V5), np.float32)
@@ -199,9 +197,7 @@ y5, _ = refocus_sharded(make_mesh(jax.devices()[:1], axes=("rx",)),
                         fs=float(chd.fs))
 assert y5.shape[2] == V5
 
-# reduced-precision trace modes on the fused DAS kernel:
-#   'auto' -> bf16pair on TPU (the published benchmark mode, ~0.2% err);
-#   'i8x4' packs the whole 4-tap stencil in ONE gather (opt-in, ~1.5%
-#   worst-case) — cubic at 1.01 vs 1.20 s/frame at the headline config
-b_q = us.DAS(chd, method="cubic", precision="f32")  # explicit full f32
+# the plain XLA scan, whatever the device (the reference path the fused
+# GPU kernel is compared with)
+b_q = us.DAS(chd, method="cubic", kernel="xla")
 assert np.isfinite(np.abs(np.asarray(b_q))).all()

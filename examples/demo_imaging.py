@@ -2,7 +2,7 @@
 walkthrough (``/root/reference/example_.m``): define a system, simulate a
 phantom, beamform with several beamformers, and save figures.
 
-Runs headless (Agg backend) on CPU or TPU; figures land in
+Runs headless (Agg backend) on CPU or GPU; figures land in
 ``examples/out/``.
 
     python examples/demo_imaging.py
@@ -16,8 +16,8 @@ import matplotlib.pyplot as plt
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import qups_tpu as q
-from qups_tpu.utils import to_host
+import qups_jax as q
+from qups_jax.utils import to_host
 
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "out")
 os.makedirs(OUT, exist_ok=True)
@@ -40,26 +40,26 @@ chd = us.greens(scat)                                  # (T, N, M)
 print("simulated ChannelData:", chd.data.shape, "fs", chd.fs)
 
 fig, ax = plt.subplots(figsize=(5, 4))
-from qups_tpu.display import chd_imagesc
+from qups_jax.display import chd_imagesc
 chd_imagesc(chd, m=chd.M // 2, ax=ax)
 fig.savefig(os.path.join(OUT, "channel_data.png"), dpi=110)
 
 # ----------------------------------------------------------- beamforming
 imgs = {}
-imgs["DAS"] = us.DAS(chd)                              # fused Pallas/XLA
+imgs["DAS"] = us.DAS(chd)                              # fused kernel/XLA
 imgs["bfDAS"] = us.bfDAS(chd)                          # table-based
 imgs["bfAdjoint"] = us.bfAdjoint(chd)                  # freq-domain
-imgs["coherence"] = us.coherence_image(chd)            # fused cohfac
+imgs["coherence"] = us.coherence_image(chd)            # cohfac
 
 def envelope(b):
-    """Host |image| on the scan grid (joins the TPU ri channel)."""
+    """Host |image| on the scan grid (joins an ri channel pair)."""
     x = to_host(b)
     if not np.iscomplexobj(x) and x.ndim > 3 and x.shape[-1] == 2:
         x = x[..., 0] + 1j * x[..., 1]          # out='ri' convention
     return np.abs(x).reshape(tuple(scan.shape) + (-1,))[..., 0, 0]
 
 
-from qups_tpu.display import scan_imagesc
+from qups_jax.display import scan_imagesc
 fig, axs = plt.subplots(1, 4, figsize=(16, 4))
 for ax, (name, b) in zip(axs, imgs.items()):
     if name == "coherence":

@@ -3,7 +3,7 @@ physics sanity for the 7 generators."""
 import numpy as np
 import pytest
 
-import qups_tpu as q
+import qups_jax as q
 
 C0 = 1540.0
 

@@ -6,7 +6,7 @@ image peak falls within 1.1 mm of the target laterally and axially
 import numpy as np
 import pytest
 
-import qups_tpu as q
+import qups_jax as q
 
 C0 = 1540.0
 TARGET = np.array([0.0, 0.0, 30e-3])
@@ -164,7 +164,7 @@ def test_das_convex_polar():
 def test_focus_tx_frame_dims():
     # regression (round-1 advisor): focusTx on ChannelData with frame dims
     # must keep F out of the synthesized-transmit broadcast
-    import qups_tpu as q
+    import qups_jax as q
     rng = np.random.default_rng(3)
     numel, T, F = 8, 64, 3
     xdc = q.TransducerArray(numel=numel, pitch=0.5e-3, fc=5e6)
@@ -185,9 +185,9 @@ def test_focus_tx_frame_dims():
                            np.asarray(out1.data), atol=1e-4)
 
 
-def test_das_method_auto_resolves_to_cubic_off_tpu():
+def test_das_method_auto_resolves_to_cubic():
     """method='auto' (the default) must resolve to the reference default
-    (cubic) off the Pallas fast path, so accuracy off-TPU is unchanged."""
+    (cubic) on the XLA path, as in the kernel."""
     xdc = q.TransducerArray(numel=8, pitch=0.3e-3, fc=3e6)
     seq = q.Sequence(type="FSA", numpulse=8, c0=1540.0)
     scan = q.ScanCartesian(x=np.linspace(-2e-3, 2e-3, 8),
@@ -240,9 +240,8 @@ def test_focus_tx_freq_blocked_matches():
 
 def test_per_pixel_c_lut_tables_match_das():
     """Per-pixel sound-speed DAS == LUT beamforming with tables
-    tau = cinv_px * distance (the TPU fast-path routing for heterogeneous
-    c, ``kern/das_spec.m:169``)."""
-    from qups_tpu.ops.das import das, das_lut, tx_distance
+    tau = cinv_px * distance (heterogeneous c, ``kern/das_spec.m:169``)."""
+    from qups_jax.ops.das import das, das_lut, tx_distance
     import jax
     import jax.numpy as jnp
     rng = np.random.default_rng(4)
@@ -279,8 +278,8 @@ def test_cubic2x_cubic_class_accuracy():
     (linear on 8x oversampled RF) its error stays within ~1.25x of true
     cubic's, while plain linear is ~4x worse (the lever that runs on the
     2x-faster packed-linear kernel; interpd.cu:89-113 half-rate analog)."""
-    import qups_tpu as q
-    from qups_tpu.ops.interp import fft_upsample
+    import qups_jax as q
+    from qups_jax.ops.interp import fft_upsample
 
     xdc = q.TransducerArray(numel=16, pitch=0.3e-3, fc=5e6)
     us = q.UltrasoundSystem(

@@ -6,7 +6,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from qups_tpu.io import save_checkpoint, load_checkpoint
+from qups_jax.io import save_checkpoint, load_checkpoint
 
 
 def test_checkpoint_pytree_roundtrip(tmp_path):

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from qups_tpu.ops import cohfac, slsc, dmas, pcf, pwznxcorr
+from qups_jax.ops import cohfac, slsc, dmas, pcf, pwznxcorr
 
 RNG = np.random.default_rng(11)
 
@@ -99,12 +99,12 @@ def test_pwznxcorr_detects_shift():
 
 @pytest.mark.full
 def test_coherence_image_mesh_matches_fallback():
-    """system.coherence_image: the fused in-mesh arm (explicit mesh ->
-    interpret-mode kernels on the CPU mesh) matches the two-step
-    DAS(keep_rx) + reduction fallback, for cohfac and slsc."""
+    """system.coherence_image: the in-mesh reduction (explicit mesh, the
+    rx band reduced on its device) matches the single-device
+    DAS(keep_rx) + reduction, for cohfac and slsc."""
     import jax
-    import qups_tpu as q
-    from qups_tpu.parallel import make_mesh
+    import qups_jax as q
+    from qups_jax.parallel import make_mesh
 
     xdc = q.TransducerArray(numel=8, pitch=0.3e-3, fc=3e6)
     us = q.UltrasoundSystem(
@@ -118,7 +118,7 @@ def test_coherence_image_mesh_matches_fallback():
     for post, lags in (("cohfac", None), ("slsc", 2)):
         ref = np.asarray(us.coherence_image(chd, post=post, lags=lags))
         got = np.asarray(us.coherence_image(chd, post=post, lags=lags,
-                                            mesh=mesh, precision="f32"))
+                                            mesh=mesh))
         assert ref.shape == got.shape == us.scan.shape
         scale = max(np.abs(ref).max(), 1e-12)
         assert np.abs(got - ref).max() / scale < 5e-3, (post, np.abs(

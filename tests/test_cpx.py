@@ -1,12 +1,10 @@
-"""utils.cpx eager-safe constructors: czeros/cexp/to_device/to_host must be
-numerically identical to the plain complex forms (on TPU they additionally
-avoid host<->device complex transfers, which that backend rejects — see
-the module docstring and NOTES.md)."""
+"""utils.cpx constructors: czeros/cexp/to_device/to_host must be
+numerically identical to the plain complex forms."""
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from qups_tpu.utils.cpx import (cexp, czeros, ri_join, ri_split, to_device,
+from qups_jax.utils.cpx import (cexp, czeros, ri_join, ri_split, to_device,
                                 to_host)
 
 

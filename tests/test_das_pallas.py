@@ -1,10 +1,18 @@
-"""Pallas DAS kernel parity tests (interpret mode on the CPU mesh) against
-the XLA reference path, across tx models, t0 layouts, and complex data."""
+"""Fused DAS kernel parity tests (Pallas interpreter on the CPU) against
+the XLA reference path, across tx models, samplers, keep modes, t0
+layouts, apodization and complex data. The compiled kernel is compared on
+the card by the ``gpu``-marked tests at the end."""
+from functools import partial
+
 import numpy as np
 import pytest
 
-from qups_tpu.ops.das import das
-from qups_tpu.ops.das_pallas import das_tiled
+from qups_jax.ops import das_fused as dk
+from qups_jax.ops.das import das
+
+# the cases below were written against linear taps unless they say
+das_kernel = partial(dk.das_kernel, method="linear")
+das_lut_kernel = partial(dk.das_lut_kernel, method="linear")
 
 RNG = np.random.default_rng(5)
 
@@ -29,9 +37,8 @@ def problem(T=256, N=16, M=4, I1=16, I2=128, cplx=False):
 def compare(x, pi, pr, pv, nv, t0, model, I1, I2, fs=4e6):
     ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=fs,
                          tx_model=model, method="linear")).squeeze()
-    got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=fs,
-                               tx_model=model, im_shape=(I1, I2, 1),
-                               interpret=True)).squeeze()
+    got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=fs,
+                               tx_model=model, interpret=True)).squeeze()
     scale = np.abs(ref).max()
     assert scale > 0
     assert np.abs(got - ref).max() / scale < 1e-4
@@ -81,9 +88,8 @@ def test_iq_fmod():
     ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                          tx_model="plane", method="linear",
                          fmod=fmod)).squeeze()
-    got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
+    got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                                tx_model="plane", fmod=fmod,
-                               im_shape=(16, 128, 1),
                                interpret=True)).squeeze()
     assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
 
@@ -93,9 +99,8 @@ def test_keep_rx():
     ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                          tx_model="plane", method="linear",
                          keep_rx=True))  # (I, N, 1)
-    got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
-                               tx_model="plane", im_shape=(16, 128, 1),
-                               keep_rx=True, interpret=True))
+    got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
+                               tx_model="plane", keep_rx=True, interpret=True))
     assert got.shape == ref.shape
     scale = np.abs(ref).max()
     assert np.abs(got - ref).max() / scale < 1e-4
@@ -104,13 +109,9 @@ def test_keep_rx():
 @pytest.mark.full
 @pytest.mark.parametrize("variant", ["plain", "frames", "iq", "cubic"])
 def test_keep_rx_streaming_multichunk(variant, monkeypatch):
-    """The streaming keep_rx path's VMEM-scratch accumulation across
-    MULTIPLE transmit chunks (MTc > 1: band set at mtc=0, accumulated
-    mid-sweep, flushed through the dummy-row-parked out block on the final
-    chunk) — M=16 with the default MC=4 gives 4 chunks. Checked against
-    the XLA path and against the non-streaming kernel (QUPS_DAS_STREAMRX=0
-    forces the aliased-HBM accumulator)."""
-    from qups_tpu.ops import das_pallas as dp
+    """keep_rx across several transmit chunks (M=16 with chunks of 4:
+    each receiver's accumulator runs over four chunk rows) for plain,
+    frame, IQ and cubic data, vs the XLA path."""
     x, pi, pr, pv, nv, t0 = problem(T=256, N=16, M=16,
                                     cplx=variant == "iq")
     if variant == "frames":
@@ -120,24 +121,19 @@ def test_keep_rx_streaming_multichunk(variant, monkeypatch):
     kw = dict(fs=4e6, tx_model="plane", keep_rx=True)
     ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, method=method,
                          fmod=fmod, **kw))
-    got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0,
-                               im_shape=(16, 128, 1), interpret=True,
+    got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0,
+                               interpret=True,
                                method=method, fmod=fmod, **kw))
     assert got.shape == ref.shape
     scale = np.abs(ref).max()
     assert np.abs(got - ref).max() / scale < 2e-4
-    # NOTE: the pre-streaming aliased-HBM accumulator (QUPS_DAS_STREAMRX=0)
-    # cannot be A/B'd here — input_output_aliases accumulation across
-    # block revisits is compiled-TPU-only (interpret mode re-reads the
-    # original accumulator input each step, so MTc > 1 keep_rx was never
-    # interpret-testable). The streaming path is, which is the point.
-    del dp, monkeypatch
+    del monkeypatch
 
 
 def test_keep_rx_streaming_with_fused_apod():
-    """Streaming keep_rx combined with a fused-geometry apodization
-    (aperture growth) across multiple transmit chunks."""
-    from qups_tpu.ops.das_pallas import Fused
+    """keep_rx combined with a fused-geometry apodization (aperture
+    growth) across multiple transmit chunks."""
+    from qups_jax.ops.apod import Fused
     x, pi, pr, pv, nv, t0 = problem(T=256, N=16, M=16)
     N = pr.shape[0]
     d = pi[:, None, 0] - pr[None, :, 0]
@@ -147,9 +143,8 @@ def test_keep_rx_streaming_with_fused_apod():
     ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                          tx_model="plane", method="linear", keep_rx=True,
                          apod=(apd,)))
-    got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
-                               tx_model="plane", im_shape=(16, 128, 1),
-                               keep_rx=True, interpret=True,
+    got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
+                               tx_model="plane", keep_rx=True, interpret=True,
                                apod=(Fused("aperture_growth", f=1.0),)))
     assert got.shape == ref.shape
     scale = np.abs(ref).max()
@@ -157,23 +152,20 @@ def test_keep_rx_streaming_with_fused_apod():
 
 
 def test_keep_tx_streaming_multichunk():
-    """Streaming keep_tx across MULTIPLE rx chunks (NCc > 1: per-transmit
-    tiles accumulate in VMEM scratch; N=64 with the default NC=16 gives 4
-    chunks), vs the XLA path — the MUL-mode mirror of keep_rx."""
+    """keep_tx with many receivers per transmit chunk (N=64), vs the XLA
+    path — the mirror of keep_rx."""
     x, pi, pr, pv, nv, t0 = problem(T=256, N=64, M=4)
     ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                          tx_model="plane", method="linear", keep_tx=True))
-    got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
-                               tx_model="plane", im_shape=(16, 128, 1),
-                               keep_tx=True, interpret=True))
+    got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
+                               tx_model="plane", keep_tx=True, interpret=True))
     assert got.shape == ref.shape
     scale = np.abs(ref).max()
     assert np.abs(got - ref).max() / scale < 1e-4
 
 
 def test_lut_keep_tx_streaming_multichunk():
-    from qups_tpu.ops.das import das_lut
-    from qups_tpu.ops.das_pallas import das_lut_tiled
+    from qups_jax.ops.das import das_lut
     T, N, M, I1, I2 = 256, 64, 4, 16, 128
     x, pi, pr, pv, nv, t0 = problem(T=T, N=N, M=M, I1=I1, I2=I2)
     c0 = 1540.0
@@ -181,8 +173,8 @@ def test_lut_keep_tx_streaming_multichunk():
     tau_tx = np.einsum("ik,mk->im", pi, nv) / c0
     ref = np.asarray(das_lut(x, tau_rx, tau_tx, t0, method="linear",
                              keep_tx=True, fs=4e6))
-    got = np.asarray(das_lut_tiled(x, tau_rx, tau_tx, t0,
-                                   im_shape=(I1, I2, 1), keep_tx=True,
+    got = np.asarray(das_lut_kernel(x, tau_rx, tau_tx, t0,
+                                   keep_tx=True,
                                    interpret=True, fs=4e6))
     assert got.shape == ref.shape
     scale = np.abs(ref).max()
@@ -195,8 +187,8 @@ def test_frames():
     xf = np.stack([x * (f + 1) for f in range(F)], axis=-1)
     ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                          tx_model="plane", method="linear")).squeeze()
-    got = np.asarray(das_tiled(xf, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
-                               tx_model="plane", im_shape=(16, 128, 1),
+    got = np.asarray(das_kernel(xf, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
+                               tx_model="plane",
                                interpret=True))  # (I, 1, 1, F)
     assert got.shape[-1] == F
     scale = np.abs(ref).max()
@@ -206,7 +198,7 @@ def test_frames():
 
 
 def test_fused_aperture_growth():
-    from qups_tpu.ops.das_pallas import Fused
+    from qups_jax.ops.apod import Fused
     x, pi, pr, pv, nv, t0 = problem(T=256, N=16, M=4)
     fnum = 1.5
     # materialized oracle mask, planar array: z > f * |2 (xn - xi)|
@@ -217,8 +209,8 @@ def test_fused_aperture_growth():
     ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                          tx_model="plane", method="linear",
                          apod=(apod.reshape(-1, 1, 1, 16, 1),))).squeeze()
-    got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
-                               tx_model="plane", im_shape=(16, 128, 1),
+    got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
+                               tx_model="plane",
                                apod=(Fused("aperture_growth", f=fnum),),
                                interpret=True)).squeeze()
     scale = np.abs(ref).max()
@@ -226,7 +218,7 @@ def test_fused_aperture_growth():
 
 
 def test_fused_acceptance_angle():
-    from qups_tpu.ops.das_pallas import Fused
+    from qups_jax.ops.apod import Fused
     x, pi, pr, pv, nv, t0 = problem(T=256, N=16, M=4)
     th = 30.0
     P = pi.reshape(-1, 3)
@@ -236,8 +228,8 @@ def test_fused_acceptance_angle():
     ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                          tx_model="plane", method="linear",
                          apod=(m.reshape(-1, 1, 1, 16, 1),))).squeeze()
-    got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
-                               tx_model="plane", im_shape=(16, 128, 1),
+    got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
+                               tx_model="plane",
                                apod=(Fused("acceptance_angle", theta=th),),
                                interpret=True)).squeeze()
     scale = np.abs(ref).max()
@@ -250,51 +242,11 @@ def test_fmod_iq():
     ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                          tx_model="plane", method="linear",
                          fmod=fmod)).squeeze()
-    got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
-                               tx_model="plane", im_shape=(16, 128, 1),
-                               fmod=fmod, interpret=True)).squeeze()
+    got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
+                               tx_model="plane", fmod=fmod,
+                               interpret=True)).squeeze()
     scale = np.abs(ref).max()
     assert np.abs(got - ref).max() / scale < 2e-4
-
-
-def test_bf16_precision_mode():
-    x, pi, pr, pv, nv, t0 = problem(T=256, N=16, M=4)
-    ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
-                         tx_model="plane", method="linear")).squeeze()
-    got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
-                               tx_model="plane", im_shape=(16, 128, 1),
-                               precision="bf16", interpret=True)).squeeze()
-    scale = np.abs(ref).max()
-    # bf16 slabs: ~8-bit mantissa on the raw samples
-    assert np.abs(got - ref).max() / scale < 2e-2
-
-
-def test_bf16pair_precision_mode():
-    # packed-pair taps: both interp taps ride one i32 gather of
-    # (bf16(x[t]) | bf16(x[t+1]) << 16) lanes
-    x, pi, pr, pv, nv, t0 = problem(T=256, N=16, M=4)
-    ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
-                         tx_model="plane", method="linear")).squeeze()
-    got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
-                               tx_model="plane", im_shape=(16, 128, 1),
-                               precision="bf16pair",
-                               interpret=True)).squeeze()
-    scale = np.abs(ref).max()
-    assert np.abs(got - ref).max() / scale < 2e-2
-
-
-def test_bf16pair_iq():
-    x, pi, pr, pv, nv, t0 = problem(T=256, N=16, M=4, cplx=True)
-    fmod = 1e6
-    ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
-                         tx_model="plane", method="linear",
-                         fmod=fmod)).squeeze()
-    got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
-                               tx_model="plane", im_shape=(16, 128, 1),
-                               fmod=fmod, precision="bf16pair",
-                               interpret=True)).squeeze()
-    scale = np.abs(ref).max()
-    assert np.abs(got - ref).max() / scale < 2e-2
 
 
 def test_keep_tx():
@@ -302,65 +254,11 @@ def test_keep_tx():
     ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                          tx_model="plane", method="linear",
                          keep_tx=True))  # (I, 1, M)
-    got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
-                               tx_model="plane", im_shape=(16, 128, 1),
-                               keep_tx=True, interpret=True))
+    got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
+                               tx_model="plane", keep_tx=True, interpret=True))
     assert got.shape == ref.shape
     scale = np.abs(ref).max()
     assert np.abs(got - ref).max() / scale < 1e-4
-
-
-@pytest.mark.full
-def test_allfast_planner_decision():
-    """plan_allfast proves single-window coverage at low fs (fast arm) and
-    rejects it when the per-tile delay spread exceeds one 128-lane window
-    (high fs); parity holds either way."""
-    from qups_tpu.ops import das_pallas as dp
-
-    x, pi, pr, pv, nv, t0 = problem()
-    # mirror das_tiled's prep enough to query the planner directly
-    for fs, want in ((2e6, True), (64e6, False)):
-        sc = np.float32(1 / 1540.0)
-        g = pi.reshape(16, 128, 3)
-        gp = np.pad(g, ((0, 0), (0, 0), (0, 0)), mode="edge")
-        boxes = dp._tile_boxes((gp[:, :, 2] * sc).astype(np.float32),
-                               (gp[:, :, 0] * sc).astype(np.float32),
-                               (gp[:, :, 1] * sc).astype(np.float32))
-        prk = np.zeros((8, 128), np.float32)
-        prk[0, :16] = pr[:, 0] * sc
-        prk[2, :16] = pr[:, 2] * sc
-        gbox = dp._group_boxes(prk, 16)
-        pvk = np.zeros((8, 128), np.float32)
-        pvk[0, :4] = pv[:, 0] * sc
-        pvk[2, :4] = pv[:, 2] * sc
-        pvk[3, :4] = nv[:, 0]
-        pvk[5, :4] = nv[:, 2]
-        pvk[6, :4] = t0
-        got = dp.plan_allfast(boxes, gbox, pvk, 4, fs=fs, tx_model="plane",
-                              planar=True, T=256, pair=False)
-        assert got == want, (fs, got)
-    # low-fs parity: the unaligned single-window 'fast' arm is active
-    compare(x, pi, pr, pv, nv, t0, "plane", 16, 128, fs=2e6)
-    # high-fs parity: the aligned multi-window loop is the active path
-    compare(x, pi, pr, pv, nv, t0, "plane", 16, 128, fs=64e6)
-
-
-@pytest.mark.full
-def test_noallfast_ablation_parity():
-    """Force the aligned-window loop on an allfast-eligible config — keeps
-    the slow arm covered now that small configs default to the fast arm."""
-    from qups_tpu.ops import das_pallas as dp
-    import jax
-
-    x, pi, pr, pv, nv, t0 = problem()
-    old = dp._ABLATE
-    try:
-        dp._ABLATE = frozenset({"noallfast"})
-        jax.clear_caches()
-        compare(x, pi, pr, pv, nv, t0, "plane", 16, 128)
-    finally:
-        dp._ABLATE = old
-        jax.clear_caches()
 
 
 def test_volumetric_3d_scan():
@@ -385,19 +283,17 @@ def test_volumetric_3d_scan():
     t0 = np.zeros(M, np.float32)
     ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                          tx_model="plane", method="linear")).squeeze()
-    got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
-                               tx_model="plane", im_shape=(I1, I2, I3),
-                               interpret=True)).squeeze()
+    got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
+                               tx_model="plane", interpret=True)).squeeze()
     scale = np.abs(ref).max()
     assert scale > 0
     assert np.abs(got - ref).max() / scale < 1e-4
 
 
 def test_lut_matches_das_lut():
-    """LUT-mode Pallas kernel vs the XLA das_lut oracle: geometric and
+    """LUT-mode kernel vs the XLA das_lut oracle: geometric and
     perturbed (eikonal-like) delay tables, summed / keep_rx / keep_tx."""
-    from qups_tpu.ops.das import das_lut
-    from qups_tpu.ops.das_pallas import das_lut_tiled
+    from qups_jax.ops.das import das_lut
     T, N, M, I1, I2 = 256, 16, 4, 16, 128
     x, pi, pr, pv, nv, t0 = problem(T=T, N=N, M=M, I1=I1, I2=I2)
     c0 = 1540.0
@@ -410,8 +306,7 @@ def test_lut_matches_das_lut():
         ref = np.asarray(das_lut(x, tau_rx, tau_tx, t0, method="linear",
                                  keep_rx=keep == "rx", keep_tx=keep == "tx",
                                  **kw))
-        got = np.asarray(das_lut_tiled(x, tau_rx, tau_tx, t0,
-                                       im_shape=(I1, I2, 1),
+        got = np.asarray(das_lut_kernel(x, tau_rx, tau_tx, t0,
                                        keep_rx=keep == "rx",
                                        keep_tx=keep == "tx",
                                        interpret=True, **kw))
@@ -421,11 +316,9 @@ def test_lut_matches_das_lut():
 
 
 def test_lut_keep_rx_streaming_multichunk():
-    """LUT-kernel streaming keep_rx across MULTIPLE transmit chunks
-    (MTc > 1): VMEM-scratch band accumulation + dummy-row-parked flush,
-    vs the XLA das_lut oracle (bfDASLUT/bfEikonal coherence imaging)."""
-    from qups_tpu.ops.das import das_lut
-    from qups_tpu.ops.das_pallas import das_lut_tiled
+    """LUT-kernel keep_rx across several transmit chunks, vs the XLA
+    das_lut oracle (bfDASLUT/bfEikonal coherence imaging)."""
+    from qups_jax.ops.das import das_lut
     T, N, M, I1, I2 = 256, 16, 16, 16, 128
     x, pi, pr, pv, nv, t0 = problem(T=T, N=N, M=M, I1=I1, I2=I2)
     c0 = 1540.0
@@ -433,8 +326,8 @@ def test_lut_keep_rx_streaming_multichunk():
     tau_tx = np.einsum("ik,mk->im", pi, nv) / c0
     ref = np.asarray(das_lut(x, tau_rx, tau_tx, t0, method="linear",
                              keep_rx=True, fs=4e6))
-    got = np.asarray(das_lut_tiled(x, tau_rx, tau_tx, t0,
-                                   im_shape=(I1, I2, 1), keep_rx=True,
+    got = np.asarray(das_lut_kernel(x, tau_rx, tau_tx, t0,
+                                   keep_rx=True,
                                    interpret=True, fs=4e6))
     assert got.shape == ref.shape
     scale = np.abs(ref).max()
@@ -442,10 +335,9 @@ def test_lut_keep_rx_streaming_multichunk():
 
 
 def test_lut_wide_spread_falls_to_window_loop():
-    """Delay tables whose per-stripe spread exceeds one window must still
-    be exact (the multi-window loop arm)."""
-    from qups_tpu.ops.das import das_lut
-    from qups_tpu.ops.das_pallas import das_lut_tiled
+    """Delay tables with a wide lateral spread (a sawtooth of 280
+    samples) stay exact: taps are gathered per pixel."""
+    from qups_jax.ops.das import das_lut
     T, N, M, I1, I2 = 512, 8, 2, 8, 128
     x, pi, pr, pv, nv, t0 = problem(T=T, N=N, M=M, I1=I1, I2=I2)
     c0 = 1540.0
@@ -456,8 +348,8 @@ def test_lut_wide_spread_falls_to_window_loop():
     tau_rx = tau_rx + saw[:, None]
     ref = np.asarray(das_lut(x, tau_rx, tau_tx, t0, method="linear",
                              fs=4e6))
-    got = np.asarray(das_lut_tiled(x, tau_rx, tau_tx, t0,
-                                   im_shape=(I1, I2, 1), interpret=True,
+    got = np.asarray(das_lut_kernel(x, tau_rx, tau_tx, t0,
+                                   interpret=True,
                                    fs=4e6))
     scale = np.abs(ref).max()
     assert scale > 0
@@ -475,27 +367,11 @@ def test_methods_geometry(method):
     x, pi, pr, pv, nv, t0 = problem()
     ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                          tx_model="plane", method=method)).squeeze()
-    got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
+    got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                                tx_model="plane", method=method,
-                               im_shape=(16, 128, 1),
                                interpret=True)).squeeze()
     tol = 1e-3 if method == "lanczos3" else 1e-4  # folded-trig rounding
     assert np.abs(got - ref).max() / np.abs(ref).max() < tol
-
-
-@pytest.mark.parametrize("method", ["cubic", "lanczos3"])
-def test_methods_pair_precision(method):
-    # 4 taps ride TWO packed-pair gathers (lanes k-1 and k+1)
-    x, pi, pr, pv, nv, t0 = problem()
-    ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
-                         tx_model="plane", method=method)).squeeze()
-    got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
-                               tx_model="plane", method=method,
-                               im_shape=(16, 128, 1),
-                               precision="bf16pair",
-                               interpret=True)).squeeze()
-    # bf16 taps: ~8-bit mantissa on the raw samples
-    assert np.abs(got - ref).max() / np.abs(ref).max() < 2e-2
 
 
 @pytest.mark.full
@@ -504,24 +380,23 @@ def test_cubic_keep_rx_and_fmod():
     ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                          tx_model="plane", method="cubic", fmod=2e5,
                          keep_rx=True))
-    got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
+    got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                                tx_model="plane", method="cubic", fmod=2e5,
-                               im_shape=(16, 128, 1), keep_rx=True,
+                               keep_rx=True,
                                interpret=True))
     assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
 
 
 @pytest.mark.parametrize("method", ["nearest", "cubic", "lanczos3"])
 def test_methods_lut(method):
-    from qups_tpu.ops.das import das_lut
-    from qups_tpu.ops.das_pallas import das_lut_tiled
+    from qups_jax.ops.das import das_lut
     x, pi, pr, pv, nv, t0 = problem()
     tau_rx = (np.linalg.norm(pi[:, None, :] - pr[None], axis=-1)
               / 1540.0).astype(np.float32)
     tau_tx = (pi @ nv.T / 1540.0).astype(np.float32)
     ref = np.asarray(das_lut(x, tau_rx, tau_tx, t0, fs=4e6,
                              method=method)).squeeze()
-    got = np.asarray(das_lut_tiled(x, tau_rx, tau_tx, t0, fs=4e6,
+    got = np.asarray(das_lut_kernel(x, tau_rx, tau_tx, t0, fs=4e6,
                                    method=method, interpret=True)).squeeze()
     tol = 1e-3 if method == "lanczos3" else 1e-4
     assert np.abs(got - ref).max() / np.abs(ref).max() < tol
@@ -534,9 +409,9 @@ def test_keep_both_bf_mode():
     ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                          tx_model="plane", method="linear",
                          keep_rx=True, keep_tx=True))
-    got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
+    got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                                tx_model="plane", method="linear",
-                               im_shape=(16, 128, 1), keep_rx=True,
+                               keep_rx=True,
                                keep_tx=True, interpret=True))
     assert got.shape == ref.shape
     assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
@@ -547,9 +422,9 @@ def test_keep_both_cubic():
     ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                          tx_model="plane", method="cubic",
                          keep_rx=True, keep_tx=True))
-    got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
+    got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                                tx_model="plane", method="cubic",
-                               im_shape=(16, 128, 1), keep_rx=True,
+                               keep_rx=True,
                                keep_tx=True, interpret=True))
     assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
 
@@ -557,8 +432,7 @@ def test_keep_both_cubic():
 def test_lut_frames():
     """The LUT kernel carries frame batches (T, N, M, F) like the
     geometry kernel (reference threads F through bfDASLUT)."""
-    from qups_tpu.ops.das import das_lut
-    from qups_tpu.ops.das_pallas import das_lut_tiled
+    from qups_jax.ops.das import das_lut
     x, pi, pr, pv, nv, t0 = problem()
     F = 3
     xf = np.stack([x * (f + 1) for f in range(F)], axis=-1)
@@ -567,7 +441,7 @@ def test_lut_frames():
     tau_tx = (pi @ nv.T / 1540.0).astype(np.float32)
     ref = np.asarray(das_lut(xf, tau_rx, tau_tx, t0, fs=4e6,
                              method="cubic"))
-    got = np.asarray(das_lut_tiled(xf, tau_rx, tau_tx, t0, fs=4e6,
+    got = np.asarray(das_lut_kernel(xf, tau_rx, tau_tx, t0, fs=4e6,
                                    method="cubic", interpret=True))
     assert got.shape == ref.shape
     assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
@@ -577,28 +451,25 @@ def test_lut_keep_both():
     """LUT-mode keep_rx & keep_tx (BF mode, bf.cu:129-140 bits 3+4
     together on the bring-your-own-delays path): the full (I, N, M)
     volume from delay tables matches the XLA das_lut."""
-    from qups_tpu.ops.das import das_lut
-    from qups_tpu.ops.das_pallas import das_lut_tiled
+    from qups_jax.ops.das import das_lut
     x, pi, pr, pv, nv, t0 = problem(N=8, M=4)
     tau_rx = (np.linalg.norm(pi[:, None, :] - pr[None], axis=-1)
               / 1540.0).astype(np.float32)
     tau_tx = (pi @ nv.T / 1540.0).astype(np.float32)
     ref = np.asarray(das_lut(x, tau_rx, tau_tx, t0, fs=4e6,
                              method="linear", keep_rx=True, keep_tx=True))
-    got = np.asarray(das_lut_tiled(x, tau_rx, tau_tx, t0, fs=4e6,
+    got = np.asarray(das_lut_kernel(x, tau_rx, tau_tx, t0, fs=4e6,
                                    method="linear", keep_rx=True,
-                                   keep_tx=True, im_shape=(16, 128, 1),
-                                   interpret=True))
+                                   keep_tx=True, interpret=True))
     assert got.shape == ref.shape
     assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
 
 
 def test_multi_frame_dims_fold():
     """Arbitrary trailing frame dims (T, N, M, F1, F2) fold into one F
-    axis inside the Pallas wrappers and unfold on return — the
+    axis inside the kernel wrappers and unfold on return — the
     reference's F x ... threading (kern/das_spec.m:180-181)."""
-    from qups_tpu.ops.das import das, das_lut
-    from qups_tpu.ops.das_pallas import das_lut_tiled, das_tiled
+    from qups_jax.ops.das import das, das_lut
     x, pi, pr, pv, nv, t0 = problem()
     F1, F2 = 2, 3
     xf = np.stack([np.stack([x * (1 + f1 + F1 * f2) for f2 in range(F2)],
@@ -606,9 +477,9 @@ def test_multi_frame_dims_fold():
     assert xf.shape == x.shape + (F1, F2)
     ref = np.asarray(das(xf, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                          tx_model="plane", method="linear"))
-    got = np.asarray(das_tiled(xf, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
+    got = np.asarray(das_kernel(xf, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
                                tx_model="plane", method="linear",
-                               im_shape=(16, 128, 1), interpret=True))
+                               interpret=True))
     assert got.shape == ref.shape
     assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
     tau_rx = (np.linalg.norm(pi[:, None, :] - pr[None], axis=-1)
@@ -616,179 +487,133 @@ def test_multi_frame_dims_fold():
     tau_tx = (pi @ nv.T / 1540.0).astype(np.float32)
     ref = np.asarray(das_lut(xf, tau_rx, tau_tx, t0, fs=4e6,
                              method="linear"))
-    got = np.asarray(das_lut_tiled(xf, tau_rx, tau_tx, t0, fs=4e6,
-                                   method="linear", im_shape=(16, 128, 1),
-                                   interpret=True))
+    got = np.asarray(das_lut_kernel(xf, tau_rx, tau_tx, t0, fs=4e6,
+                                   method="linear", interpret=True))
     assert got.shape == ref.shape
     assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
 
 
-@pytest.mark.full
-def test_hostwin_parity(monkeypatch):
-    """QUPS_DAS_HOSTWIN=1 (host-planned packed window bounds on the
-    geometry kernel — the VERDICT-r3 static-window experiment) matches
-    the default in-kernel window planning exactly."""
-    monkeypatch.setenv("QUPS_DAS_HOSTWIN", "1")
-    for model in ("plane", "virtual"):
-        x, pi, pr, pv, nv, t0 = problem()
-        if model == "virtual":
-            pv = np.stack([np.linspace(-3e-3, 3e-3, 4), np.zeros(4),
-                           np.full(4, 20e-3)], -1).astype(np.float32)
-            nv = np.tile([0, 0, 1.0], (4, 1)).astype(np.float32)
-        ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
-                             tx_model=model, method="linear")).squeeze()
-        got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0,
-                                   fs=4e6, tx_model=model,
-                                   im_shape=(16, 128, 1),
-                                   interpret=True)).squeeze()
-        assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4, model
+# ---------------------------------------------------------------------------
+# the kernel's feature matrix: transmit model x sampler x keep mode, with a
+# per-transmit t0 and virtual sources off the array
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("keep", ["sum", "rx", "tx"])
+@pytest.mark.parametrize("method", ["nearest", "linear", "cubic", "lanczos3"])
+@pytest.mark.parametrize("model", ["plane", "diverging", "virtual"])
+def test_kernel_matrix(model, method, keep):
+    x, pi, pr, pv, nv, _ = problem(T=192, N=8, M=4, I1=8, I2=40)
+    if model != "plane":
+        pv = np.stack([np.linspace(-3e-3, 3e-3, 4), np.zeros(4),
+                       np.full(4, -10e-3 if model == "diverging"
+                               else 20e-3)], -1).astype(np.float32)
+    t0 = np.linspace(0, 4e-6, 4).astype(np.float32)
+    kw = dict(fs=4e6, tx_model=model, method=method, keep_rx=keep == "rx",
+              keep_tx=keep == "tx")
+    ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, **kw))
+    got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0,
+                                interpret=True, block=64, **kw))
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
 
 
-def test_acc16_keep_rx(monkeypatch):
-    """QUPS_DAS_ACC16=1: bf16 kept-axis accumulator matches f32 within
-    bf16 tolerance (the aliased-sweep-halving experiment; compiled runs
-    accumulate through the alias, so interpret exercises the streaming
-    arm's bf16 out writes)."""
-    monkeypatch.setenv("QUPS_DAS_ACC16", "1")
-    from qups_tpu.ops.das import das
-    x, pi, pr, pv, nv, t0 = problem()
-    ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
-                         tx_model="plane", method="linear", keep_rx=True))
-    got = np.asarray(das_tiled(x, pi, pr, pv, nv, t0, 1 / 1540.0, fs=4e6,
-                               tx_model="plane", method="linear",
-                               im_shape=(16, 128, 1), keep_rx=True,
-                               interpret=True))
-    assert got.dtype == np.float32 and got.shape == ref.shape
-    assert np.abs(got - ref).max() / np.abs(ref).max() < 2e-2  # bf16
+def test_per_pixel_sound_speed():
+    """A per-pixel slowness map (heterogeneous c) multiplies the path
+    length in-kernel, as ``das`` does."""
+    x, pi, pr, pv, nv, t0 = problem(I1=8, I2=40)
+    cinv = (1 / RNG.uniform(1450, 1600, pi.shape[0])).astype(np.float32)
+    kw = dict(fs=4e6, tx_model="plane", method="cubic")
+    ref = np.asarray(das(x, pi, pr, pv, nv, t0, cinv, **kw))
+    got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, cinv,
+                                interpret=True, **kw))
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
 
 
-def test_i8x4_quad_cubic():
-    """precision='i8x4': the 4-tap stencil packed as int8x4 so cubic taps
-    ride ONE 32-bit gather (measured 1.014 vs 1.195 s/frame bf16pair at
-    the full config). Parity vs f32 cubic within the int8 quantization
-    band on worst-case (white-noise) traces, all keep modes + IQ; the
-    physics oracle localizes the scatterer exactly like f32."""
-    import qups_tpu as q
+def test_block_padding_and_chunks():
+    """A pixel count that is no multiple of the block, and a transmit
+    count whose chunk falls to 1 (M=5), give the same image for every
+    launch configuration."""
+    x, pi, pr, pv, nv, _ = problem(T=192, N=8, M=5, I1=7, I2=19)
+    t0 = np.zeros(5, np.float32)
+    kw = dict(fs=4e6, tx_model="plane", method="linear")
+    ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, **kw))
+    for block, chunk in ((32, None), (64, 1), (128, 5)):
+        got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0,
+                                    interpret=True, block=block,
+                                    chunk=chunk, **kw))
+        assert got.shape == ref.shape == (133, 1, 1)
+        assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
 
-    x, pi, pr, pv, nv, t0 = problem()
-    kw = dict(fs=4e6, tx_model="plane", im_shape=(16, 128, 1),
-              interpret=True, out="ri")
-    for extra in ({}, {"keep_rx": True}, {"keep_tx": True}):
-        a = np.asarray(das_tiled(x, pi, pr, pv, nv, t0,
-                                 np.float32(1 / 1540.0), method="cubic",
-                                 precision="f32", **extra, **kw))
-        b = np.asarray(das_tiled(x, pi, pr, pv, nv, t0,
-                                 np.float32(1 / 1540.0), method="cubic",
-                                 precision="i8x4", **extra, **kw))
-        assert np.abs(a - b).max() <= 0.02 * np.abs(a).max(), extra
-    # 2-tap methods reject the quad pack explicitly
+
+def test_covers():
+    """What the kernel serves: fused or no apodization, the four
+    samplers, scalar or per-pixel c, 32-bit-indexable operands."""
+    from qups_jax.ops.apod import Fused
+    from qups_jax.ops.das_fused import covers
+    shape = (256, 16, 4)
+    assert covers(shape, (), "cubic", np.float32(1.0), I=2048)
+    assert covers(shape, (Fused("aperture_growth", f=1.5),), "linear")
+    assert covers(shape, (), "nearest", np.ones(2048), I=2048)
+    assert not covers(shape, (np.ones((1, 1, 1, 16, 1)),), "cubic")
+    assert not covers(shape, (), "cubic2x")
+    assert not covers(shape, (), "cubic", np.ones((2048, 16)))
+    assert not covers((4096, 256, 256, 16), (), "cubic", I=2**20)
     with pytest.raises(ValueError):
-        das_tiled(x, pi, pr, pv, nv, t0, np.float32(1 / 1540.0),
-                  method="linear", precision="i8x4", **kw)
-    # physics: point-scatterer PSF peak unmoved (BFTest oracle)
-    xdc = q.TransducerArray(numel=8, pitch=0.3e-3, fc=5e6)
-    us = q.UltrasoundSystem(
-        tx=xdc, rx=xdc, seq=q.Sequence(type="FSA", numpulse=8),
-        scan=q.ScanCartesian(x=np.linspace(-3e-3, 3e-3, 32),
-                             z=np.linspace(17e-3, 23e-3, 32)), fs=25e6)
-    scat = q.Scatterers(pos=[[0.0], [0.0], [20e-3]], c0=1540.0)
-    chd = us.greens(scat)
-    pvs, nvs, model = us._tx_geometry()
-    img = np.asarray(das_tiled(
-        np.asarray(chd.data), us._pixels(), us.rx.positions().T, pvs, nvs,
-        chd.t0_host, np.float32(1 / 1540.0), fs=float(chd.fs),
-        tx_model=model, method="cubic", precision="i8x4",
-        im_shape=tuple(us.scan.shape), interpret=True, out="ri"))
-    mag = np.hypot(img[..., 0], img[..., 1]).reshape(-1)
-    P = us.scan.positions().reshape(3, -1)
-    k = int(mag.argmax())
-    assert np.linalg.norm(P[:, k] - [0, 0, 20e-3]) < 1.1e-3
+        das_kernel(np.zeros(shape, np.float32), np.zeros((8, 3)),
+                   np.zeros((16, 3)), np.zeros((4, 3)), np.zeros((4, 3)),
+                   0.0, 1.0, fs=1.0, method="sinc", interpret=True)
 
 
-def test_i8x4_lut_path():
-    """i8x4 quad pack on the LUT (bring-your-own-delays) kernel."""
-    from qups_tpu.ops.das_pallas import das_lut_tiled
-    x, pi, pr, pv, nv, t0 = problem()
-    tau_rx = (np.linalg.norm(pi[:, None] - pr[None], axis=-1)
-              / 1540.0).astype(np.float32)
-    tau_tx = (pi @ nv.T / 1540.0 + t0[None, :]).astype(np.float32)
-    kw = dict(fs=4e6, im_shape=(16, 128, 1), interpret=True, out="ri")
-    a = np.asarray(das_lut_tiled(x, tau_rx, tau_tx, t0, method="cubic",
-                                 precision="f32", **kw))
-    b = np.asarray(das_lut_tiled(x, tau_rx, tau_tx, t0, method="cubic",
-                                 precision="i8x4", **kw))
-    assert np.abs(a - b).max() <= 0.02 * np.abs(a).max()
+@pytest.mark.parametrize("table", [False, True])
+@pytest.mark.parametrize("keep", ["sum", "rx", "tx", "both"])
+def test_lowers_to_triton_for_cuda(keep, table):
+    """The kernel lowers through Pallas's Triton route for a CUDA device,
+    from the CPU (``jax.export`` runs the GPU lowering rules without a
+    card): IQ data, fmod, frames and fused apodization in one call."""
+    import jax
+    import jax.numpy as jnp
+    from qups_jax.ops.apod import Fused
+    x, pi, pr, pv, nv, t0 = problem(T=64, N=8, M=4, I1=4, I2=64)
+    xs = jax.ShapeDtypeStruct(x.shape + (2,), jnp.complex64)
+    kw = dict(fs=4e6, method="cubic", fmod=1e6, keep_rx=keep in ("rx", "both"),
+              keep_tx=keep in ("tx", "both"))
+    if table:
+        tau_rx = np.full((pi.shape[0], 8), 1e-5, np.float32)
+        tau_tx = np.full((pi.shape[0], 4), 1e-5, np.float32)
+
+        def f(x):
+            return dk.das_lut_kernel(x, tau_rx, tau_tx, t0, **kw)
+    else:
+        apod = (Fused("aperture_growth", f=1.5),
+                Fused("tx_parallelogram", xlo=-5e-3, xhi=5e-3))
+
+        def f(x):
+            return dk.das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0,
+                                 tx_model="virtual", apod=apod, **kw)
+    exp = jax.export.export(
+        jax.jit(f), platforms=["cuda"],
+        disabled_checks=[jax.export.DisabledSafetyCheck.custom_call(
+            "__gpu$xla.gpu.triton")])(xs)
+    text = exp.mlir_module()
+    assert "xla.gpu.triton" in text and "das_kernel" in text
 
 
-def test_i8x4_scale_contracts():
-    """Review-found regressions (r5): (a) the reusable LUT plan handle
-    must re-derive the int8 quantization scale PER frame set (a stale
-    first-frame scale mis-scales later frames); (b) complex/IQ + fmod
-    must use ONE shared scale for both channels (the in-kernel
-    remodulation rotation mixes them); (c) the descale factor is s/127,
-    checked against the f32 ABSOLUTE reference, not self-consistency."""
-    from qups_tpu.ops.das_pallas import das_lut_plan, das_lut_tiled
-
-    x, pi, pr, pv, nv, t0 = problem()
-    x10 = (10.0 * x).astype(np.float32)
-    tau_rx = (np.linalg.norm(pi[:, None] - pr[None], axis=-1)
-              / 1540.0).astype(np.float32)
-    tau_tx = (pi @ nv.T / 1540.0 + t0[None, :]).astype(np.float32)
-    kwl = dict(fs=4e6, im_shape=(16, 128, 1), out="ri", interpret=True)
-    r32 = np.asarray(das_lut_tiled(x10, tau_rx, tau_tx, t0,
-                                   method="cubic", precision="f32", **kwl))
-    plan = das_lut_plan(tau_rx, tau_tx, t0, fs=4e6, T=x.shape[0],
-                        N=x.shape[1], M=x.shape[2],
-                        im_shape=(16, 128, 1), out="ri", method="cubic",
-                        precision="i8x4", interpret=True)
-    plan(x)  # frame 1 primes the handle with a DIFFERENT amplitude
-    a2 = np.asarray(plan(x10))
-    assert np.abs(a2 - r32).max() <= 0.02 * np.abs(r32).max()
-    # IQ + fmod with wildly different channel amplitudes
-    xc = (x + 1j * (0.05 * RNG.standard_normal(x.shape))).astype(
-        np.complex64)
-    kw = dict(fs=4e6, tx_model="plane", im_shape=(16, 128, 1),
-              interpret=True, out="ri", fmod=3e5)
-    af = np.asarray(das_tiled(xc, pi, pr, pv, nv, t0,
-                              np.float32(1 / 1540.0), method="cubic",
-                              precision="f32", **kw))
-    aq = np.asarray(das_tiled(xc, pi, pr, pv, nv, t0,
-                              np.float32(1 / 1540.0), method="cubic",
-                              precision="i8x4", **kw))
-    assert np.abs(af - aq).max() <= 0.02 * np.abs(af).max()
-
-
-def test_cubic2x_host_complex_and_wire_formats():
-    """Review-found regression (r5): cubic2x must decode/split the trace
-    wire formats BEFORE upsampling — host-complex input beamforms
-    without eager device-complex transfer."""
-    x, pi, pr, pv, nv, t0 = problem(cplx=True)
-    kw = dict(fs=4e6, tx_model="plane", im_shape=(16, 128, 1),
-              interpret=True, out="ri")
-    b = np.asarray(das_tiled(x, pi, pr, pv, nv, t0,
-                             np.float32(1 / 1540.0), method="cubic2x",
-                             **kw))
-    assert np.isfinite(b).all() and np.abs(b).max() > 0
-
-
-def test_i8x4_per_transmit_scale_resolution():
-    """The i8x4 quantization scale is PER TRANSMIT (pv row 8, folded into
-    the tap weights): transmits spanning 60 dB of amplitude each keep
-    full int8 resolution — under a single global scale the weak
-    transmits would quantize to the int8 floor. keep_tx slices isolate
-    each transmit's own error."""
-    x, pi, pr, pv, nv, t0 = problem()
-    amps = np.array([1.0, 1e-1, 1e-2, 1e-3], np.float32)
-    xa = (x * amps[None, None, :]).astype(np.float32)
-    kw = dict(fs=4e6, tx_model="plane", im_shape=(16, 128, 1),
-              interpret=True, out="ri", keep_tx=True)
-    a = np.asarray(das_tiled(xa, pi, pr, pv, nv, t0,
-                             np.float32(1 / 1540.0), method="cubic",
-                             precision="f32", **kw))
-    b = np.asarray(das_tiled(xa, pi, pr, pv, nv, t0,
-                             np.float32(1 / 1540.0), method="cubic",
-                             precision="i8x4", **kw))
-    for m in range(4):
-        sl_a, sl_b = a[:, :, m], b[:, :, m]
-        err = np.abs(sl_a - sl_b).max() / np.abs(sl_a).max()
-        assert err < 0.02, (m, err)  # global scale: m=3 err would be ~1
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["linear", "cubic"])
+@pytest.mark.parametrize("keep", ["sum", "rx", "tx"])
+def test_compiled_kernel_on_card(method, keep):
+    """The kernel compiled through Triton matches the XLA scan on the
+    card, for geometry and table delays, complex data and fmod."""
+    from qups_jax.ops.das import das_lut, delay_tables
+    x, pi, pr, pv, nv, t0 = problem(T=512, N=32, M=8, I1=32, I2=96,
+                                    cplx=True)
+    kw = dict(fs=4e6, method=method, keep_rx=keep == "rx",
+              keep_tx=keep == "tx", fmod=5e5)
+    ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0,
+                         tx_model="plane", **kw))
+    got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0,
+                                tx_model="plane", **kw))
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
+    tau_rx, tau_tx = delay_tables(pi, pr, pv, nv, 1540.0, tx_model="plane")
+    ref = np.asarray(das_lut(x, tau_rx, tau_tx, t0, **kw))
+    got = np.asarray(das_lut_kernel(x, tau_rx, tau_tx, t0, **kw))
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4

@@ -6,8 +6,8 @@ import matplotlib.pyplot as plt  # noqa: E402
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
-import qups_tpu as q  # noqa: E402
-import qups_tpu.display  # noqa: E402,F401  (binds the methods)
+import qups_jax as q  # noqa: E402
+import qups_jax.display  # noqa: E402,F401  (binds the methods)
 
 
 @pytest.fixture(autouse=True)
@@ -66,8 +66,8 @@ def test_scan_imagesc_volume_slice():
     src/Scan.m:385-406)."""
     import matplotlib
     matplotlib.use("Agg")
-    import qups_tpu as q
-    from qups_tpu.display import scan_imagesc
+    import qups_jax as q
+    from qups_jax.display import scan_imagesc
     scan = q.ScanCartesian(x=np.linspace(-4e-3, 4e-3, 8),
                            y=np.linspace(-2e-3, 2e-3, 4),
                            z=np.linspace(10e-3, 20e-3, 6))
@@ -94,8 +94,8 @@ def test_scan_vol3d():
     alpha-composited plane stack both render."""
     import matplotlib
     matplotlib.use("Agg")
-    import qups_tpu as q
-    from qups_tpu.display import scan_vol3d
+    import qups_jax as q
+    from qups_jax.display import scan_vol3d
     scan = q.ScanCartesian(x=np.linspace(-4e-3, 4e-3, 8),
                            y=np.linspace(-2e-3, 2e-3, 4),
                            z=np.linspace(10e-3, 20e-3, 6))
@@ -119,9 +119,9 @@ def test_scan_vol3d():
 
 
 def test_scan_imagesc_ri_channel():
-    """A trailing size-2 axis on real data is the TPU ri convention
+    """A trailing size-2 axis on real data is the ri convention
     (``out='ri'``): the display must show the complex envelope, not
-    ``|real part|`` (regression — the demo's DAS output is ri on TPU)."""
+    ``|real part|`` (regression for ri-format images)."""
     scan = q.ScanCartesian(x=np.linspace(-5e-3, 5e-3, 32), y=[0.0],
                            z=np.linspace(0, 20e-3, 64))
     rng = np.random.default_rng(3)

@@ -3,8 +3,8 @@ oracle (``test/KernTest.m:409``) and the heterogeneous-medium beamformer."""
 import numpy as np
 import pytest
 
-import qups_tpu as q
-from qups_tpu.ops.eikonal import msfm, msfm_multi, _load_native
+import qups_jax as q
+from qups_jax.ops.eikonal import msfm, msfm_multi, _load_native
 
 
 def test_msfm2d_analytic_distance():

@@ -20,17 +20,17 @@ def _readme_blocks():
 
 def _docstring_examples():
     import inspect
-    import qups_tpu
-    import qups_tpu.core, qups_tpu.ops, qups_tpu.system
-    import qups_tpu.parallel, qups_tpu.utils, qups_tpu.sim
+    import qups_jax
+    import qups_jax.core, qups_jax.ops, qups_jax.system
+    import qups_jax.parallel, qups_jax.utils, qups_jax.sim
 
     out = []
     seen = set()
-    mods = [qups_tpu, qups_tpu.system]
+    mods = [qups_jax, qups_jax.system]
     import pkgutil
     import importlib
-    for pkg in (qups_tpu.core, qups_tpu.ops, qups_tpu.parallel,
-                qups_tpu.utils, qups_tpu.sim):
+    for pkg in (qups_jax.core, qups_jax.ops, qups_jax.parallel,
+                qups_jax.utils, qups_jax.sim):
         for m in pkgutil.iter_modules(pkg.__path__):
             mods.append(importlib.import_module(f"{pkg.__name__}.{m.name}"))
     def harvest(qualname, obj):
@@ -74,8 +74,8 @@ def test_docstring_example(name, code):
 
 
 def test_io_roundtrip(tmp_path):
-    import qups_tpu as q
-    from qups_tpu.io import save_chd, load_chd, obj2dict, dict2obj
+    import qups_jax as q
+    from qups_jax.io import save_chd, load_chd, obj2dict, dict2obj
 
     x = (np.random.randn(16, 4, 2) + 1j * np.random.randn(16, 4, 2)).astype(np.complex64)
     chd = q.ChannelData(data=x, fs=10e6, t0=np.array([1e-6, 2e-6]))

@@ -4,7 +4,7 @@ beamformers)."""
 import numpy as np
 import pytest
 
-import qups_tpu as q
+import qups_jax as q
 
 C0 = 1540.0
 TARGET = np.array([0.0, 0.0, 30e-3])
@@ -102,7 +102,7 @@ def test_geom_delays_matches_host():
     """Device-built delay tables == host f64 norm within f32 tolerance
     (the bfAdjoint tables moved on-device after a 207 s/frame host-upload
     diagnosis; semantics must not drift)."""
-    from qups_tpu.ops.fdbf import geom_delays
+    from qups_jax.ops.fdbf import geom_delays
     rng = np.random.default_rng(0)
     pi = rng.uniform(-2e-2, 4e-2, (100, 3)).astype(np.float32)
     pos = rng.uniform(-1e-2, 1e-2, (7, 3)).astype(np.float32)
@@ -118,7 +118,7 @@ def test_refocus_op_cache_reused():
     sequence (repeated decodes measured 0.19 s vs 5.68 s at headline
     scale): the second call must hit the cache, and the decode must be
     unchanged by caching (linearity check: 2x data -> 2x decode)."""
-    from qups_tpu.system import _REFOCUS_OP_CACHE
+    from qups_jax.system import _REFOCUS_OP_CACHE
     seq = q.Sequence(type="FSA", numpulse=32, c0=C0)
     us = make_us(seq)  # 32-element probe: FSA decodes 32 pulses
     rng = np.random.default_rng(1)
@@ -136,92 +136,123 @@ def test_refocus_op_cache_reused():
 
 
 # ---------------------------------------------------------------------------
-# fused Pallas adjoint engine (ops/fdbf_pallas.py) vs the XLA engine
+# the adjoint engine vs a float64 numpy direct sum of its definition
 # ---------------------------------------------------------------------------
+def adjoint_oracle(x, tau_rx, tau_tx, del_tx, apod, t0, t0o, bins, *, fs,
+                   fmod=0.0, keep_rx=False, keep_tx=False):
+    """Float64 direct sum over the selected bins of the adjoint
+    beamformer (``UltrasoundSystem.m:4015-4027``)."""
+    x = np.asarray(x, np.float64)
+    T = x.shape[0]
+    t = np.arange(T)[:, None, None] / fs
+    X = np.fft.fft(x * np.exp(2j * np.pi * fmod * (t + t0)), axis=0)
+    f = (np.arange(T) * fs / T)[:, None, None]
+    X = X * np.exp(-2j * np.pi * f * t0) * np.exp(2j * np.pi * f * t0o)
+    out = 0.0
+    for k in bins:
+        if k < 0:
+            continue
+        fk = k * fs / T
+        A = np.exp(-2j * np.pi * fk * tau_tx.astype(np.float64)) @ (
+            apod * np.exp(2j * np.pi * fk * del_tx.astype(np.float64)))
+        A = A / np.maximum(np.linalg.norm(A, axis=1, keepdims=True), 1e-300)
+        W = np.exp(2j * np.pi * fk * tau_rx.astype(np.float64))
+        if keep_rx:
+            out = out + W * (np.conj(A) @ X[k].T)
+        elif keep_tx:
+            out = out + (W @ X[k]) * np.conj(A)
+        else:
+            out = out + np.sum((W @ X[k]) * np.conj(A), axis=1)
+    return out
+
+
+def _adjoint_problem(seed=7, I=40):
+    rng = np.random.default_rng(seed)
+    T, N, M, V = 128, 8, 6, 9
+    return (rng.standard_normal((T, N, V)).astype(np.float32),
+            rng.uniform(0, 2e-6, (I, N)).astype(np.float32),
+            rng.uniform(0, 2e-6, (I, M)).astype(np.float32),
+            rng.uniform(0, 3e-7, (M, V)).astype(np.float32),
+            rng.standard_normal((M, V)).astype(np.float32),
+            rng.uniform(0, 1e-6, (V,)).astype(np.float32),
+            rng.uniform(0, 1e-7, (V,)).astype(np.float32))
+
+
 @pytest.mark.parametrize("mode", ["sum", "rx", "tx"])
 @pytest.mark.parametrize("binspec", ["uniform", "stride2", "ragged"])
-def test_bf_adjoint_tiled_parity(mode, binspec):
-    """Interpret-mode parity of the fused engine (phasor recurrence on
-    uniformly spaced bins; direct sin/cos on ragged sets) against
-    ops.fdbf.bf_adjoint, all keep modes (ref UltrasoundSystem.m:4015-4027)."""
-    from qups_tpu.ops.fdbf import bf_adjoint
-    from qups_tpu.ops.fdbf_pallas import bf_adjoint_tiled
+def test_bf_adjoint_vs_numpy(mode, binspec):
+    """ops.fdbf.bf_adjoint against the float64 direct sum, all keep modes
+    and bin layouts (the GEMMs run at full f32 precision)."""
+    from qups_jax.ops.fdbf import bf_adjoint
 
-    rng = np.random.default_rng(7)
-    T, N, M, V, I = 128, 8, 6, 9, 40
-    x = rng.standard_normal((T, N, V)).astype(np.float32)
-    tau_rx = rng.uniform(0, 2e-6, (I, N)).astype(np.float32)
-    tau_tx = rng.uniform(0, 2e-6, (I, M)).astype(np.float32)
-    del_tx = rng.uniform(0, 3e-7, (M, V)).astype(np.float32)
-    apod = rng.standard_normal((M, V)).astype(np.float32)
-    t0 = rng.uniform(0, 1e-6, (V,)).astype(np.float32)
-    t0o = rng.uniform(0, 1e-7, (V,)).astype(np.float32)
+    args = _adjoint_problem()
     fs = 40e6
     bins = {"uniform": np.arange(5, 17),
             "stride2": np.arange(5, 29, 2),
             "ragged": np.array([5, 9, 10, 11, 17])}[binspec].astype(np.int32)
     kw = {"keep_rx": mode == "rx", "keep_tx": mode == "tx"}
-    b0 = np.asarray(bf_adjoint(x, tau_rx, tau_tx, del_tx, apod,
-                               t0, t0o, bins, fs=fs, fmod=1e6, **kw))
-    b1 = np.asarray(bf_adjoint_tiled(x, tau_rx, tau_tx, del_tx, apod,
-                                     t0, t0o, bins, fs=fs, fmod=1e6,
-                                     precision="f32", BI=16,
-                                     interpret=True, **kw))
-    assert b1.shape == b0.shape
-    rel = np.linalg.norm(b1 - b0) / np.linalg.norm(b0)
+    want = adjoint_oracle(*args, bins, fs=fs, fmod=1e6, **kw)
+    got = np.asarray(bf_adjoint(*args, bins, fs=fs, fmod=1e6, **kw))
+    assert got.shape == want.shape
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
     assert rel < 2e-4, (mode, binspec, rel)
 
 
-def test_bf_adjoint_kernel_pallas_system():
-    """System-level: kernel='pallas' (interpret off-TPU) localizes the
-    scatterer like the XLA engine."""
+def test_bf_adjoint_sharded_system():
+    """System-level: the pixel-sharded adjoint on the CPU mesh localizes
+    the scatterer and matches the single-device bfAdjoint."""
+    import jax
+    from qups_jax.ops.fdbf import geom_delays
+    from qups_jax.parallel import bf_adjoint_sharded, make_mesh
+
     seq = q.Sequence(type="FSA", numpulse=32, c0=C0)
     us = make_us(seq)
     scat = q.Scatterers(pos=TARGET.reshape(3, 1), c0=C0)
     chd = us.greens(scat)
-    b = us.bfAdjoint(chd, fthresh_db=-30, kernel="pallas",
-                     precision="f32")
+    bins = np.arange(20, 60, dtype=np.int32)
+    ref = np.asarray(us.bfAdjoint(chd, bins=bins))
+    pi = us._pixels()
+    tau_rx = geom_delays(pi, us.rx.positions().T.astype(np.float32),
+                         np.float32(1 / C0))
+    tau_tx = geom_delays(pi, us.tx.positions().T.astype(np.float32),
+                         np.float32(1 / C0))
+    t0o = np.broadcast_to(us.seq.t0_offset(), (us.seq.num_pulse,))
+    del_tx = us.seq.delays(us.tx) + t0o[None, :]
+    mesh = make_mesh(jax.devices(), axes=("rx", "tx"))
+    b = np.asarray(bf_adjoint_sharded(
+        mesh, chd.data, tau_rx, tau_tx, del_tx, us.seq.apodization(us.tx),
+        chd.t0_host, t0o, bins, fs=float(chd.fs)))
+    b = b.reshape(ref.shape)
+    assert np.abs(b - ref).max() / np.abs(ref).max() < 1e-4
     p = peak_pos(us, b)
     assert abs(p[0] - TARGET[0]) < TOL, p
     assert abs(p[2] - TARGET[2]) < TOL, p
 
 
-def test_bf_adjoint_tiled_bin_padding_and_empty():
-    """The XLA engine's fbins conventions carry over: -1 entries are
-    skipped (not wrapped to bin T-1), and an empty set returns zeros."""
-    from qups_tpu.ops.fdbf import bf_adjoint
-    from qups_tpu.ops.fdbf_pallas import bf_adjoint_tiled
-    from qups_tpu.parallel import bf_adjoint_sharded, make_mesh
+def test_bf_adjoint_bin_padding_and_empty():
+    """The fbins conventions: -1 entries are skipped (not wrapped to bin
+    T-1), and an empty set returns zeros, on one device and sharded."""
+    from qups_jax.ops.fdbf import bf_adjoint
+    from qups_jax.parallel import bf_adjoint_sharded, make_mesh
     import jax
 
-    rng = np.random.default_rng(5)
-    T, N, M, V, I = 64, 4, 4, 4, 24
-    x = rng.standard_normal((T, N, V)).astype(np.float32)
-    tau_rx = rng.uniform(0, 2e-6, (I, N)).astype(np.float32)
-    tau_tx = rng.uniform(0, 2e-6, (I, M)).astype(np.float32)
-    del_tx = rng.uniform(0, 3e-7, (M, V)).astype(np.float32)
-    apod = rng.standard_normal((M, V)).astype(np.float32)
-    t0 = np.zeros(V, np.float32)
+    args = _adjoint_problem(seed=5, I=24)
     fs = 40e6
-    args = (x, tau_rx, tau_tx, del_tx, apod, t0, t0)
     padded = np.array([5, 6, 7, -1, -1], np.int32)
     b0 = np.asarray(bf_adjoint(*args, padded, fs=fs))
-    b1 = np.asarray(bf_adjoint_tiled(*args, padded, fs=fs,
-                                     precision="f32", BI=8,
-                                     interpret=True))
+    b1 = np.asarray(bf_adjoint(*args, padded[:3], fs=fs))
     rel = np.linalg.norm(b1 - b0) / np.linalg.norm(b0)
-    assert rel < 2e-4, rel
-    # empty set -> zeros, same shape as the XLA engine's
-    be = np.asarray(bf_adjoint_tiled(*args, np.zeros(0, np.int32), fs=fs,
-                                     interpret=True))
-    assert be.shape == (I,) and not be.any()
+    assert rel < 2e-6, rel
+    want = adjoint_oracle(*args, padded, fs=fs)
+    assert np.linalg.norm(b0 - want) / np.linalg.norm(want) < 2e-4
+    be = np.asarray(bf_adjoint(*args, np.zeros(0, np.int32), fs=fs))
+    assert be.shape == (24,) and not be.any()
     mesh = make_mesh(jax.devices(), axes=("rx", "tx"))
     bs = np.asarray(bf_adjoint_sharded(mesh, *args, np.zeros(0, np.int32),
-                                       fs=fs, interpret=True))
-    assert bs.shape == (I,) and not bs.any()
-    with pytest.raises(ValueError):
-        bf_adjoint_sharded(mesh, *args, padded, fs=fs, precision="fp32",
-                           interpret=True)
+                                       fs=fs))
+    assert bs.shape == (24,) and not bs.any()
+    bp = np.asarray(bf_adjoint_sharded(mesh, *args, padded, fs=fs))
+    assert np.linalg.norm(bp - b0) / np.linalg.norm(b0) < 2e-4
 
 
 def test_bf_adjoint_frames():
@@ -244,6 +275,5 @@ def test_bf_adjoint_frames():
     # 5-D (F1, F2) unfolds on return
     x5 = x4.reshape(x4.shape[:3] + (2, 1))
     chd5 = q.ChannelData(data=x5, fs=chd.fs, t0=chd.t0_host)
-    b5 = np.asarray(us.bfAdjoint(chd5, fthresh_db=-30, kernel="pallas",
-                                 precision="f32"))
+    b5 = np.asarray(us.bfAdjoint(chd5, fthresh_db=-30))
     assert b5.shape == b1.shape + (2, 1)

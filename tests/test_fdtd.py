@@ -4,8 +4,8 @@ steps, ``test/SimTest.m:299-324``), plus free-field propagation sanity."""
 import numpy as np
 import pytest
 
-import qups_tpu as q
-from qups_tpu.sim.fdtd import kspace_sim_2d
+import qups_jax as q
+from qups_jax.sim.fdtd import kspace_sim_2d
 
 
 def test_free_field_pulse_speed():
@@ -112,7 +112,7 @@ def _echo_time(us, med, cgrd, z_t, c0):
 
 def test_kspace_3d_free_field():
     # 3-D free field: differential arrival between two z-planes matches c
-    from qups_tpu.sim.fdtd import kspace_sim_3d
+    from qups_jax.sim.fdtd import kspace_sim_3d
     c0, h = 1500.0, 0.4e-3
     N = 48
     cmap = np.full((N, N, N), c0)
@@ -167,7 +167,7 @@ def test_kspace_absorption_power_law():
     """Amplitude decay matches exp(-alpha(f0) r) on top of geometric
     spreading (compare absorbing vs lossless sims at the same probe)."""
     import numpy as np
-    from qups_tpu.sim.fdtd import kspace_sim_2d, db2neper
+    from qups_jax.sim.fdtd import kspace_sim_2d, db2neper
 
     n, h, c0 = 160, 0.1e-3, 1500.0
     f0 = 2e6
@@ -205,7 +205,7 @@ def test_kspace_absorption_power_law():
 def test_kspace_nonlinear_harmonics():
     """B/A nonlinearity generates second harmonic along propagation."""
     import numpy as np
-    from qups_tpu.sim.fdtd import kspace_sim_2d
+    from qups_jax.sim.fdtd import kspace_sim_2d
 
     n, h, c0 = 160, 0.1e-3, 1500.0
     f0 = 2e6
@@ -247,7 +247,7 @@ def test_kspace_field_recording_and_bg_subtract():
     scatterer it suppresses the direct transmit while keeping the echo
     (``UltrasoundSystem.m:2542`` field sensor + background subtraction)."""
     import numpy as np
-    import qups_tpu as q
+    import qups_jax as q
 
     c0, fc = 1500.0, 2e6
     lam = c0 / fc
@@ -299,7 +299,7 @@ def test_kspace_linear_element_projection():
     """el_proj='linear' distributes elements over nodes; TOF matches the
     nearest-node projection within a couple samples."""
     import numpy as np
-    import qups_tpu as q
+    import qups_jax as q
 
     C0 = 1500.0
     xdc = q.TransducerArray(numel=8, pitch=0.5e-3, fc=1.5e6)
@@ -365,7 +365,7 @@ def test_kspace_karray_projection_convex_tof():
 def test_kspace_1d_tof_and_reflection():
     """1-D PSTD (kspaceFirstOrder1D analog): free-field TOF at c and a
     reflection off an impedance step arriving at the round-trip time."""
-    from qups_tpu.sim.fdtd import kspace_sim_1d
+    from qups_jax.sim.fdtd import kspace_sim_1d
     c0, h = 1500.0, 0.2e-3
     N, steps = 512, 1900
     dt = 0.3 * h / c0

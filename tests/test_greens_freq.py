@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from qups_tpu.ops.greens import greens_dense
-from qups_tpu.ops.greens_freq import greens_freq
+from qups_jax.ops.greens import greens_dense
+from qups_jax.ops.greens_freq import greens_freq
 
 def problem(S=10, N=6, M=3, T=128, K=15, fs=15e6, c0=1540.0, seed=3):
     RNG = np.random.default_rng(seed)
@@ -30,8 +30,9 @@ def problem(S=10, N=6, M=3, T=128, K=15, fs=15e6, c0=1540.0, seed=3):
 
 
 def numpy_freq_oracle(kern, ps, amp, pn, pv, *, T, s0, t0k, fs, cinv, R0,
-                      L=None):
-    """Float64 reference of the band-limited synthesis (all bins)."""
+                      L=None, alpha0=0.0):
+    """Float64 reference of the band-limited synthesis (all bins), with
+    frequency-linear absorption over both legs."""
     K = kern.shape[0]
     r1 = np.linalg.norm(ps[:, None, None, :].astype(np.float64)
                         - pn[None].astype(np.float64), axis=-1)  # (S, N, En)
@@ -49,6 +50,9 @@ def numpy_freq_oracle(kern, ps, amp, pn, pv, *, T, s0, t0k, fs, cinv, R0,
     else:
         Kf = np.fft.rfft(kern.astype(np.float64), n=L)
     th = 2 * np.pi * k * cinv * fs / L
+    if alpha0:
+        from qups_jax.ops.greens_freq import alpha_np_per_bin
+        th = th - 1j * alpha_np_per_bin(alpha0, fs, L) * k
     A = (np.exp(-1j * th[:, None, None, None] * r1[None])
          / np.maximum(r1, R0)[None]).sum(-1)  # (F, S, N)
     B = (np.exp(-1j * th[:, None, None, None] * r2[None])
@@ -71,6 +75,28 @@ def test_vs_numpy_oracle():
     got = np.asarray(greens_freq(kern, ps, amp, pn, pv, rtol=0.0, **kw))
     err = np.abs(got - want).max() / np.abs(want).max()
     assert err < 2e-4, err
+
+
+@pytest.mark.parametrize("case", ["odd_sizes", "many_scatterers",
+                                  "attenuation", "bf16", "subelements"])
+def test_engine_cases_vs_numpy_oracle(case):
+    """The XLA GEMM engine against the float64 oracle: sizes far from any
+    block multiple, a larger cloud, absorption, bf16 GEMM inputs (f32
+    accumulation) and two sub-elements per element."""
+    kw_p = dict(odd_sizes=dict(S=13, N=5, M=7), many_scatterers=dict(S=37),
+                subelements=dict(S=7)).get(case, {})
+    kern, ps, amp, pn, pv, kw = problem(**kw_p)
+    if case == "subelements":
+        off = np.array([0.1e-3, 0, 0], np.float32)
+        pn = np.concatenate([pn + off, pn - off], axis=1)
+        pv = np.concatenate([pv - off, pv + off], axis=1)
+    extra = dict(alpha0=0.5) if case == "attenuation" else {}
+    want = numpy_freq_oracle(kern, ps, amp, pn, pv, **kw, **extra)
+    got = np.asarray(greens_freq(
+        kern, ps, amp, pn, pv, rtol=0.0, **kw, **extra,
+        **(dict(precision="bf16") if case == "bf16" else {})))
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err < (5e-3 if case == "bf16" else 2e-4), err
 
 
 def sincup_dense(kern, ps, amp, pn, pv, up=16, **kw):
@@ -202,7 +228,7 @@ def test_attenuation_analytic():
     pv = np.zeros((1, 1, 3), np.float32)
     T = int((2 * r / c0) * fs) + K + 64
     kw = dict(T=T, s0=0.0, t0k=0.0, fs=fs, cinv=1 / c0, R0=1e-3,
-              out="complex", engine="xla")
+              out="complex")
     x0 = np.asarray(greens_freq(kern, ps, amp, pn, pv, **kw)).ravel()
     alpha0 = 0.5  # dB/cm/MHz
     x1 = np.asarray(greens_freq(kern, ps, amp, pn, pv, alpha0=alpha0,
@@ -219,7 +245,7 @@ def test_attenuation_analytic():
 
 def test_attenuation_via_scatterers():
     """system.greens consumes Scatterers.alpha0 through the freq engine."""
-    import qups_tpu as q
+    import qups_jax as q
     xdc = q.TransducerArray(numel=4, pitch=0.3e-3, fc=5e6)
     seq = q.Sequence(type="FSA", numpulse=4, c0=1500.0)
     scan = q.ScanCartesian(x=np.linspace(-1e-3, 1e-3, 4),

@@ -6,7 +6,7 @@ properties, named presets, and geometric invariants for each class.
 import numpy as np
 import pytest
 
-from qups_tpu import (
+from qups_jax import (
     Waveform, TransducerArray, TransducerConvex, TransducerMatrix,
     TransducerGeneric, Sequence, SequenceRadial, SequenceGeneric,
     ScanCartesian, ScanPolar, ScanSpherical, ScanGeneric, Scatterers, Medium,
@@ -386,7 +386,7 @@ def test_scan_convert_spherical():
 def test_scan_generic_trans_function():
     """ScanGeneric with a trans(u, v, w) transform (the VERDICT round-1 test
     gap): a sheared cartesian mapping round-trips through positions()."""
-    import qups_tpu as q
+    import qups_jax as q
 
     def shear(U, V, W):
         return np.stack([U + 0.1 * V, W * np.ones_like(U), V])
@@ -405,7 +405,7 @@ def test_medium_sampled_offgrid():
     """Medium.Sampled: method='nearest' snaps off-grid queries to the
     nearest sample; the default cubic interpolates smoothly (the
     reference's gridded-interpolant behavior, ``Medium.m:465``)."""
-    import qups_tpu as q
+    import qups_jax as q
 
     grid = q.ScanCartesian(x=np.linspace(-2e-3, 2e-3, 5), y=[0.0],
                            z=np.linspace(0, 4e-3, 5))
@@ -431,8 +431,8 @@ def test_medium_sampled_offgrid():
 def test_dict2obj_nested_scan_roundtrip():
     """io.obj2dict/dict2obj round-trips an UltrasoundSystem with nested
     scan/seq/xdc (the VERDICT round-1 test gap)."""
-    import qups_tpu as q
-    from qups_tpu.io import obj2dict, dict2obj
+    import qups_jax as q
+    from qups_jax.io import obj2dict, dict2obj
 
     us = q.UltrasoundSystem(
         tx=q.TransducerArray(numel=8, pitch=0.4e-3, fc=4e6),
@@ -453,7 +453,7 @@ def test_dict2obj_nested_scan_roundtrip():
 def test_system_das_multiframe():
     """Multi-frame (F > 1) data through system.DAS (XLA path): per-frame
     equality with single-frame calls."""
-    import qups_tpu as q
+    import qups_jax as q
     rng = np.random.default_rng(0)
     T, N, M, F = 128, 8, 3, 2
     ang = np.radians([-5, 0, 5.0])

@@ -5,8 +5,8 @@ loop implementation (the golden oracle), across dtypes and layouts.
 import numpy as np
 import pytest
 
-from qups_tpu.ops import interp1, interpf, wsinterpd, wsinterpd2, convd, xcorr
-from qups_tpu.ops.conv import conv_len
+from qups_jax.ops import interp1, interpf, wsinterpd, wsinterpd2, convd, xcorr
+from qups_jax.ops.conv import conv_len
 
 RNG = np.random.default_rng(7)
 
@@ -258,7 +258,7 @@ def test_wsinterpd2_summed_scan_complex_phase():
 
 def test_waveform_tone_window():
     # regression: the Hann window must actually be applied (round-1 dead code)
-    from qups_tpu import Waveform
+    from qups_jax import Waveform
     wv = Waveform.Tone(5e6, cycles=4.0)
     t = np.linspace(0, 4 / 5e6, 200)
     s = np.asarray(wv.sample(t))

@@ -3,7 +3,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from qups_tpu.utils import Timer, annotate, trace
+from qups_jax.utils import Timer, annotate, trace
 
 
 def test_timer_and_annotation(tmp_path):

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from qups_tpu.ops.rays import wbilerp, xiaolinwu_line, ray_paths, global_average_c
+from qups_jax.ops.rays import wbilerp, xiaolinwu_line, ray_paths, global_average_c
 
 
 def test_wbilerp_total_weight_is_length():
@@ -80,7 +80,7 @@ def test_wbilerp_dense_matches_host():
     """Device wbilerp (jit/vmap path, VERDICT r2 missing #8) matches the
     exact host computation across ray orientations."""
     import jax.numpy as jnp
-    from qups_tpu.ops.rays import ray_paths, ray_paths_device
+    from qups_jax.ops.rays import ray_paths, ray_paths_device
 
     xg = np.linspace(0.0, 10e-3, 13)
     zg = np.linspace(0.0, 8e-3, 9)

@@ -5,7 +5,7 @@ time-of-flight, within 1.1 samples (``SimTest.m:299-324``).
 import numpy as np
 import pytest
 
-import qups_tpu as q
+import qups_jax as q
 
 
 def make_us(seq=None, numel=16, fc=3e6):
@@ -47,7 +47,7 @@ def test_greens_splat_matches_dense():
 
 
 def test_greens_freq_matches_dense():
-    """system.greens impl='freq' (the TPU MXU path) vs the dense oracle:
+    """system.greens impl='freq' (the GEMM path) vs the dense oracle:
     exact fractional delays vs cubic interp — agree to interp error."""
     # fc = fs/6: narrow enough band that cubic interp ~= the band-limited
     # semantics of the freq path (at fs/4 pulses the two legitimately
@@ -173,7 +173,7 @@ def test_simus_sparse_bins_split_runs():
     """Multi-lobe bin selections split into contiguous GEMM runs; the
     result equals the single-hull evaluation (dead-band bins carry zero
     spectrum either way)."""
-    from qups_tpu.ops.simus import _bin_runs, simus_fsa
+    from qups_jax.ops.simus import _bin_runs, simus_fsa
     # run splitting itself
     assert _bin_runs(np.array([3, 4, 5]), merge_gap=4) == [(3, 6)]
     assert _bin_runs(np.array([3, 4, 200, 202]), merge_gap=4) == \
@@ -205,30 +205,80 @@ def test_simus_sparse_bins_split_runs():
     np.testing.assert_allclose(split, hull, atol=2e-5 * np.abs(hull).max())
 
 
-def test_simus_attenuation_pallas_matches_xla():
-    """simus alpha0 absorption on the fused Pallas engine (interpret) vs
-    the XLA engine — the in-recurrence decay with the sinc directivity."""
-    from qups_tpu.ops.simus import simus_fsa
-    rng = np.random.default_rng(7)
-    S, N, E, T, fs, c0 = 5, 4, 3, 256, 10e6, 1540.0
+def simus_oracle(ps, amp, pn, az_n, pv, az_e, widths, spec, bins, *, T,
+                 fs, c0, baffle="soft", alpha0=0.0):
+    """Float64 direct sum of the simus model: per bin f,
+    X(f; n, e) = P(f) sum_s a_s D_rx D_tx e^{-2i pi f (r_rx + r_tx) / c0}
+    e^{-a(f) (r_rx + r_tx)} / (r_rx r_tx), D = sinc(w f sin(th) / c0)
+    [max(cos(th), 0) under the soft baffle]; real traces by irfft."""
+    from qups_jax.ops.greens_freq import alpha_np_per_bin
+
+    def geom(pe, az):
+        d = ps[:, None, :].astype(np.float64) - pe[None].astype(np.float64)
+        r = np.linalg.norm(d, axis=-1)
+        lat = d[..., 0] * np.cos(az) - d[..., 2] * np.sin(az)
+        ax = d[..., 2] * np.cos(az) + d[..., 0] * np.sin(az)
+        return np.maximum(r, 1e-6), lat / r, ax / r
+
+    r_rx, s_rx, c_rx = geom(pn, az_n)
+    r_tx, s_tx, c_tx = geom(pv, az_e)
+    full = np.zeros((T // 2 + 1, pn.shape[0], pv.shape[0]), np.complex128)
+    att = alpha_np_per_bin(alpha0, fs, T)
+    for b, p in zip(bins, spec):
+        f = b * fs / T
+        legs = []
+        for r, st, ct, w in ((r_rx, s_rx, c_rx, widths[1]),
+                             (r_tx, s_tx, c_tx, widths[0])):
+            D = np.sinc(w * f * st / c0)
+            if baffle == "soft":
+                D = D * np.maximum(ct, 0.0)
+            legs.append(D / r * np.exp(-2j * np.pi * f * r / c0
+                                       - att * b * r))
+        full[b] = p * np.einsum("sn,s,se->ne", legs[0], amp, legs[1])
+    return np.fft.irfft(full, n=T, axis=0)
+
+
+def _simus_problem(seed, S, N, E, alpha0=0.0):
+    rng = np.random.default_rng(seed)
     ps = np.stack([rng.uniform(-2e-3, 2e-3, S), np.zeros(S),
                    rng.uniform(8e-3, 12e-3, S)], -1).astype(np.float32)
-    amp = np.ones(S, np.float32)
+    amp = rng.uniform(0.5, 2.0, S).astype(np.float32)
     pn = np.stack([np.linspace(-2e-3, 2e-3, N), np.zeros(N), np.zeros(N)],
                   -1).astype(np.float32)
     pv = pn[:E].copy()
-    az = np.zeros(N, np.float32)
-    bins = np.arange(10, 40, dtype=np.int32)
+    az = np.radians(np.linspace(-4, 4, N)).astype(np.float32)
+    bins = np.arange(12, 40, dtype=np.int32)
     spec = (rng.standard_normal(bins.size)
             + 1j * rng.standard_normal(bins.size)).astype(np.complex64)
-    kw = dict(T=T, fs=fs, c0=c0, alpha0=1.0)
-    a = np.asarray(simus_fsa(ps, amp, pn, az, pv, az[:E],
-                             np.array([0.3e-3, 0.3e-3]), spec, bins,
-                             engine="xla", **kw))
-    b = np.asarray(simus_fsa(ps, amp, pn, az, pv, az[:E],
-                             np.array([0.3e-3, 0.3e-3]), spec, bins,
-                             engine="pallas", **kw))
-    rel = np.linalg.norm(b - a) / np.linalg.norm(a)
+    return ps, amp, pn, az, pv, az[:E], spec, bins
+
+
+def test_simus_attenuation_vs_numpy():
+    """simus alpha0 absorption (the in-recurrence decay with the sinc
+    directivity) vs the float64 direct sum."""
+    from qups_jax.ops.simus import simus_fsa
+    ps, amp, pn, azn, pv, aze, spec, bins = _simus_problem(7, 5, 4, 3)
+    widths = np.array([0.3e-3, 0.3e-3])
+    kw = dict(T=256, fs=10e6, c0=1540.0, alpha0=1.0)
+    want = simus_oracle(ps, amp, pn, azn, pv, aze, widths, spec, bins, **kw)
+    got = np.asarray(simus_fsa(ps, amp, pn, azn, pv, aze, widths, spec,
+                               bins, **kw))
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel < 2e-4, rel
+
+
+@pytest.mark.parametrize("baffle", ["soft", "hard"])
+def test_simus_engine_vs_numpy(baffle):
+    """The per-bin phasor + sinc-directivity GEMM engine vs the float64
+    direct sum, with tilted elements, soft and hard baffles."""
+    from qups_jax.ops.simus import simus_fsa
+    ps, amp, pn, azn, pv, aze, spec, bins = _simus_problem(11, 9, 5, 3)
+    widths = np.array([0.25e-3, 0.25e-3])
+    kw = dict(T=256, fs=10e6, c0=1540.0, baffle=baffle)
+    want = simus_oracle(ps, amp, pn, azn, pv, aze, widths, spec, bins, **kw)
+    got = np.asarray(simus_fsa(ps, amp, pn, azn, pv, aze, widths, spec,
+                               bins, **kw))
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
     assert rel < 2e-4, rel
 
 
@@ -290,39 +340,6 @@ def test_simus_directivity():
     a_on = np.abs(np.asarray(us.simus(on).data)).max()
     a_off = np.abs(np.asarray(us.simus(off).data)).max()
     assert a_off < 0.6 * a_on, (a_on, a_off)
-
-
-def test_simus_pallas_engine_matches_xla():
-    """The fused Pallas engine (per-bin sinc directivity in-kernel)
-    matches the XLA scan engine (interpret mode on the CPU mesh)."""
-    from qups_tpu.ops.simus import simus_fsa
-    rng = np.random.default_rng(11)
-    S, N, E, T, fs, c0 = 9, 5, 3, 256, 10e6, 1540.0
-    ps = np.stack([rng.uniform(-2e-3, 2e-3, S), np.zeros(S),
-                   rng.uniform(8e-3, 12e-3, S)], -1).astype(np.float32)
-    amp = rng.uniform(0.5, 2.0, S).astype(np.float32)
-    pn = np.stack([np.linspace(-2e-3, 2e-3, N), np.zeros(N), np.zeros(N)],
-                  -1).astype(np.float32)
-    pv = pn[:E].copy()
-    az = np.zeros(N, np.float32)
-    bins = np.arange(12, 40, dtype=np.int32)
-    spec = (rng.standard_normal(bins.size)
-            + 1j * rng.standard_normal(bins.size)).astype(np.complex64)
-    widths = np.array([0.25e-3, 0.25e-3])
-    kw = dict(T=T, fs=fs, c0=c0)
-    want = np.asarray(simus_fsa(ps, amp, pn, az, pv, az[:E], widths, spec,
-                                bins, engine="xla", **kw))
-    got = np.asarray(simus_fsa(ps, amp, pn, az, pv, az[:E], widths, spec,
-                               bins, engine="pallas", **kw))
-    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
-    assert rel < 2e-4, rel
-    # hard baffle (no obliquity) through the fused engine as well
-    wanth = np.asarray(simus_fsa(ps, amp, pn, az, pv, az[:E], widths, spec,
-                                 bins, engine="xla", baffle="hard", **kw))
-    goth = np.asarray(simus_fsa(ps, amp, pn, az, pv, az[:E], widths, spec,
-                                bins, engine="pallas", baffle="hard", **kw))
-    relh = np.linalg.norm(goth - wanth) / np.linalg.norm(wanth)
-    assert relh < 2e-4, relh
 
 
 def test_calc_scat_all_is_greens():

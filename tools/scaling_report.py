@@ -1,24 +1,18 @@
-"""Multi-chip scaling report (BASELINE scaling-efficiency evidence).
+"""Multi-device scaling report for the sharded DAS.
 
-Runs on the virtual CPU mesh (no TPU needed):
+Runs on a virtual CPU mesh (no accelerator needed):
 
-  _QUPS_TPU_TEST_SANITIZED=1 PYTHONPATH= JAX_PLATFORMS=cpu \
-  XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+  JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
   python tools/scaling_report.py
 
 For each mesh size it compiles the sharded DAS program and reports, from
-the actual compiled HLO: the all-reduce (psum) ops inserted, the bytes
-they move, and the per-device share of the gather work — the
-communication side of the strong-scaling story, which is mesh-topology
-facts rather than wall-clock (CPU wall-clock is meaningless here; the
-single-chip kernel rate is measured on real hardware by bench.py).
+the compiled HLO, the all-reduce (psum) ops inserted, the bytes they
+move, and the per-device share of the gather work: the communication
+side of strong scaling. These are counts from shapes, not times; a
+CPU wall-clock says nothing about the card.
 
-The model it validates: per-device work = I*N*M/(R*X) interp-sums, one
-psum of the I-pixel f32 image over rx then tx (2 * 4*I1p*I2p bytes/device
-per axis, ring); at the full config (I=2^20 pixels -> 4 MB image) the
-psum is ~8 MB/device over ICI (~45+ GB/s/link on v5e) ~ 0.2 ms, against
-0.08-1.2 s of per-chip kernel time -> >99% predicted scaling efficiency
-for rx*tx <= 64 chips.
+The model it checks: per-device work = I*N*M/(R*X) interp-sums, and one
+psum of the I-pixel f32 image over rx, then over tx.
 """
 import json
 import os
@@ -35,8 +29,8 @@ def main():
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
-    from qups_tpu.ops.das import das
-    from qups_tpu.parallel import make_mesh
+    from qups_jax.ops.das import das
+    from qups_jax.parallel import make_mesh
 
     ndev_all = len(jax.devices())
     rng = np.random.default_rng(0)
