@@ -39,7 +39,9 @@ TARGETS = np.array([[x, 0.0, z] for z in (15e-3, 25e-3, 35e-3)
 # 1.1 mm; engine vs float64 oracle and kernel vs XLA scan (relative)
 TOL_TOF_SAMPLES = 1.1
 TOL_PSF_M = 1.1e-3
-TOL_GREENS_ORACLE = 1e-3   # max |diff| / max |ref|, f32 GEMMs + recurrence
+# relative L2; on an H100 full-f32 GEMMs read 4.8e-5 and TF32 GEMMs 2.8e-4
+TOL_GREENS_ORACLE = 1.2e-4
+TOL_GREENS_CARDS = 1e-4    # max |diff| / max |ref|, four cards vs one
 TOL_DAS_XLA = 1e-4         # relative L2; both f32, other summation order
 
 
@@ -200,12 +202,22 @@ def greens_oracle(s: Smoke, us):
         np.ones(len(TARGETS), np.float32), pe, pe, T=chd.T,
         s0=float(np.asarray(chd.t0_host)[0]), t0k=float(wv.t0),
         fs=float(us.fs), cinv=1 / C0, R0=float(us_s.lmbda))
-    got = np.asarray(chd.data)
-    err = float(np.abs(got - want).max() / np.abs(want).max())
+    def errors(got):
+        d = np.asarray(got) - want
+        return (float(np.abs(d).max() / np.abs(want).max()),
+                float(np.linalg.norm(d) / np.linalg.norm(want)))
+    err, l2 = errors(chd.data)
     print(f"greens vs float64 oracle (32x32, T={chd.T}, fs={us.fs:.6g}, "
-          f"f32 GEMMs at Precision.HIGHEST): max rel err {err:.3e} "
-          f"(limit {TOL_GREENS_ORACLE})")
-    s.check(err < TOL_GREENS_ORACLE, f"greens oracle error {err:.3e}")
+          f"f32 GEMMs at Precision.HIGHEST): max rel err {err:.3e}, "
+          f"relative L2 {l2:.3e} (limit {TOL_GREENS_ORACLE})")
+    # what the limit guards against: the same run at the GPU's default
+    # matmul precision (TF32 GEMMs)
+    err_tf, l2_tf = errors(us_s.greens(scat, impl="freq",
+                                       precision="default").data)
+    print(f"greens vs float64 oracle at the default matmul precision "
+          f"(TF32 GEMMs): max rel err {err_tf:.3e}, relative L2 "
+          f"{l2_tf:.3e}")
+    s.check(l2 < TOL_GREENS_ORACLE, f"greens oracle relative L2 {l2:.3e}")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -258,14 +270,22 @@ def das_phase(s: Smoke, us, chd, reps: int = 5):
     s.check(rel < TOL_DAS_XLA, f"kernel vs XLA rel L2 {rel:.3e}")
     del b, ref, bk, bx
 
-    tk, tx = [], []
-    for _ in range(reps):  # the two paths alternate
-        tk.append(blocked(lambda: us.DAS(chd)))
-        tx.append(blocked(lambda: us.DAS(chd, kernel="xla")))
-    s.time(f"DAS kernel (cubic) median of {reps}",
-           f"{statistics.median(tk):.4f} s {[round(v, 4) for v in tk]}")
-    s.time(f"DAS XLA scan (cubic) median of {reps}",
-           f"{statistics.median(tx):.4f} s {[round(v, 4) for v in tx]}")
+    bk = np.asarray(us.DAS(chd, method="linear")).ravel()
+    bx = np.asarray(us.DAS(chd, method="linear", kernel="xla")).ravel()
+    rel = float(np.linalg.norm(bk - bx) / np.linalg.norm(bx))
+    print(f"DAS kernel vs XLA scan, linear: relative L2 {rel:.3e} "
+          f"(limit {TOL_DAS_XLA})")
+    s.check(rel < TOL_DAS_XLA, f"linear kernel vs XLA rel L2 {rel:.3e}")
+    del bk, bx
+
+    runs = {(m, k): [] for m in ("cubic", "linear") for k in ("auto", "xla")}
+    for _ in range(reps):  # the four paths alternate
+        for (m, k), ts in runs.items():
+            ts.append(blocked(lambda: us.DAS(chd, method=m, kernel=k)))
+    for (m, k), ts in runs.items():
+        name = "DAS kernel" if k == "auto" else "DAS XLA scan"
+        s.time(f"{name} ({m}) median of {reps}",
+               f"{statistics.median(ts):.4f} s {[round(v, 4) for v in ts]}")
 
     pv, nv, model = us._tx_geometry()
     args = (us._pixels(), us.rx.positions().T, pv, nv, chd.t0_host,
@@ -429,8 +449,8 @@ def four_cards(s: Smoke):
     a, b = np.asarray(chd4.data), np.asarray(chd.data)
     err = float(np.abs(a - b).max() / np.abs(b).max())
     print(f"greens 4 cards vs 1 card: max rel diff {err:.3e} "
-          f"(limit {TOL_GREENS_ORACLE})")
-    s.check(err < TOL_GREENS_ORACLE, f"sharded greens differs: {err}")
+          f"(limit {TOL_GREENS_CARDS})")
+    s.check(err < TOL_GREENS_CARDS, f"sharded greens differs: {err}")
     del a, b, chd4
 
     x = jax.device_put(np.asarray(chd.data),

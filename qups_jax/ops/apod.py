@@ -122,3 +122,33 @@ def tx_weight(kind, prm, lat, px, pz, lm, nvx, nvz):
     # steering direction (``UltrasoundSystem.apTxParallelogram``, ``:5269``)
     x0 = px - nvx * (pz / nvz)
     return jnp.where((x0 > prm["xlo"]) & (x0 <= prm["xhi"]), 1.0, 0.0)
+
+
+def dense_weights(rx_apods, tx_apods, pi, pr, orientations, lat, lat_tx, nv,
+                  planar: bool):
+    """The weights of split descriptors (:func:`split_fused`) evaluated as
+    the DAS kernel evaluates them, as arrays for the XLA scan: an (I, N, 1)
+    receive factor and an (I, 1, M) transmit factor, each only where such
+    descriptors exist. ``pi (I, 3)``, ``pr (N, 3)``, ``orientations (2,
+    N)`` [sin, cos] of the element azimuth, ``lat (I,)``, ``lat_tx (M,)``,
+    ``nv (M, 3)``."""
+    out = []
+    if rx_apods:
+        d = pi[:, None, :] - pr[None]
+        dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+        r2 = dx * dx + dz * dz
+        dr = jnp.sqrt(r2 if planar else r2 + dy * dy)
+        w = 1.0
+        for kind, prm in rx_apods:
+            w = w * rx_weight(kind, dict(prm), dx, dy, dz, dr,
+                              orientations[0][None], orientations[1][None],
+                              planar)
+        out.append(w[:, :, None])
+    if tx_apods:
+        w = 1.0
+        for kind, prm in tx_apods:
+            w = w * tx_weight(kind, dict(prm), lat[:, None], pi[:, :1],
+                              pi[:, 2:], lat_tx[None], nv[None, :, 0],
+                              nv[None, :, 2])
+        out.append(w[:, None, :])
+    return tuple(out)

@@ -36,12 +36,14 @@ import numpy as np
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import triton as plgpu
 
+from ..utils.backend import on_gpu
 from .apod import Fused, rx_weight, split_fused, tx_weight
 from .interp import METHODS
 
 _I32_MAX = 2**31 - 1
 # launch configuration: pixels per program, warps per program, outer-axis
-# chunk (largest of these dividing the outer axis)
+# chunk (largest of these dividing the outer axis). Measured on an H100 the
+# choice barely matters (PERF.md), so it is fixed.
 BLOCK = 128
 NUM_WARPS = 4
 CHUNKS = (4, 2, 1)
@@ -265,12 +267,14 @@ def _kernel(*refs, lut: bool, tx_model: str, planar: bool, method: str,
         store(0, acc)
 
 
-def _chunk(n: int) -> int:
-    return next(c for c in CHUNKS if n % c == 0)
+def _launch_config(N: int, M: int, keep_rx: bool, keep_tx: bool) -> dict:
+    """Pixels per program and the chunk of the outer loop's axis."""
+    n = N if keep_rx and not keep_tx else M
+    return dict(BP=BLOCK, C=next(c for c in CHUNKS if n % c == 0))
 
 
-def _launch(geo, xs, *, lut, fmod, keep_rx, keep_tx, BP, num_warps, C,
-            interpret, **statics):
+def _launch(geo, xs, *, lut, fmod, keep_rx, keep_tx, BP, C, interpret,
+            **statics):
     """Launch the kernel on flat ``geo`` refs and 1 or 2 trace planes
     ``xs`` (T, N, M, F). Returns the output planes (F, K, Ip)."""
     T, N, M, F = xs[0].shape
@@ -285,7 +289,7 @@ def _launch(geo, xs, *, lut, fmod, keep_rx, keep_tx, BP, num_warps, C,
         kern, grid=(Ip // BP, F),
         out_shape=tuple(jax.ShapeDtypeStruct((F * K * Ip,), jnp.float32)
                         for _ in range(nout)),
-        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
                                              num_stages=1),
         interpret=interpret, name="das_kernel",
     )(*geo, *planes)
@@ -348,6 +352,17 @@ def _check(x, method, I, keep_rx, keep_tx, apod=()):
         raise ValueError("das kernel: operands exceed 32-bit indexing")
 
 
+def use_kernel(x_shape, apod=(), method: str = "cubic", cinv=None,
+               keep_rx: bool = False, keep_tx: bool = False, I: int = 1,
+               interpret: bool = False) -> bool:
+    """The DAS-family dispatch, shared by every caller: the kernel for
+    the inputs it :func:`covers`, compiled on a GPU (or run in the
+    interpreter when a test passes ``interpret=True``); the XLA scan
+    otherwise."""
+    return (interpret or on_gpu()) and covers(x_shape, apod, method, cinv,
+                                              keep_rx, keep_tx, I)
+
+
 def _pad(v, Ip):
     """Edge-pad the trailing (pixel) axis to Ip."""
     pad = [(0, 0)] * (v.ndim - 1) + [(0, Ip - v.shape[-1])]
@@ -355,8 +370,7 @@ def _pad(v, Ip):
 
 
 _STATIC = ("tx_model", "planar", "method", "fs", "fmod", "keep_rx",
-           "keep_tx", "rx_apods", "tx_apods", "BP", "num_warps", "C",
-           "interpret")
+           "keep_tx", "rx_apods", "tx_apods", "BP", "C", "interpret")
 
 
 @partial(jax.jit, static_argnames=_STATIC)
@@ -400,8 +414,7 @@ def das_kernel(x, pi, pr, pv, nv, t0, cinv, *, fs: float, apod=(),
                keep_rx: bool = False, keep_tx: bool = False,
                method: str = "cubic", lat=None, lat_tx=None,
                orientations=None, planar: Optional[bool] = None,
-               interpret: bool = False, block: int = BLOCK,
-               num_warps: int = NUM_WARPS, chunk: Optional[int] = None):
+               interpret: bool = False):
     """Fused delay-and-sum; the contract of :func:`qups_jax.ops.das.das`.
 
     ``x (T, N, M, *F)`` real or complex; ``pi (I, 3)`` pixels in any
@@ -456,17 +469,13 @@ def das_kernel(x, pi, pr, pv, nv, t0, cinv, *, fs: float, apod=(),
         f32(orientations[0]).reshape(N), f32(orientations[1]).reshape(N),
         tx_model=tx_model, planar=bool(planar), method=method,
         fs=float(fs), fmod=float(fmod), keep_rx=keep_rx, keep_tx=keep_tx,
-        rx_apods=rx_apods, tx_apods=tx_apods, BP=block,
-        num_warps=num_warps,
-        C=chunk or _chunk(N if keep_rx and not keep_tx else M),
-        interpret=interpret)
+        rx_apods=rx_apods, tx_apods=tx_apods, interpret=interpret,
+        **_launch_config(N, M, keep_rx, keep_tx))
 
 
 def das_lut_kernel(x, tau_rx, tau_tx, t0, *, fs: float, fmod: float = 0.0,
                    keep_rx: bool = False, keep_tx: bool = False,
-                   method: str = "cubic", interpret: bool = False,
-                   block: int = BLOCK, num_warps: int = NUM_WARPS,
-                   chunk: Optional[int] = None):
+                   method: str = "cubic", interpret: bool = False):
     """Fused delay-and-sum from delay tables; the contract of
     :func:`qups_jax.ops.das.das_lut` without apodization: ``tau_rx (I, N)``
     and ``tau_tx (I, M)`` in seconds, ``t0`` scalar or (M,). The tables
@@ -478,7 +487,5 @@ def das_lut_kernel(x, tau_rx, tau_tx, t0, *, fs: float, fmod: float = 0.0,
     return _das_lut(
         x, f32(tau_rx), f32(tau_tx), f32(t0), tx_model="", planar=True,
         method=method, fs=float(fs), fmod=float(fmod), keep_rx=keep_rx,
-        keep_tx=keep_tx, rx_apods=(), tx_apods=(), BP=block,
-        num_warps=num_warps,
-        C=chunk or _chunk(N if keep_rx and not keep_tx else M),
-        interpret=interpret)
+        keep_tx=keep_tx, rx_apods=(), tx_apods=(), interpret=interpret,
+        **_launch_config(N, M, keep_rx, keep_tx))

@@ -26,9 +26,9 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
+from ..ops.apod import Fused, dense_weights, split_fused
 from ..ops.das import das, das_lut
-from ..ops.das_fused import covers, das_kernel, das_lut_kernel
-from ..utils.backend import on_gpu
+from ..ops.das_fused import das_kernel, das_lut_kernel, use_kernel
 from ..ops.greens import greens_splat
 
 
@@ -243,6 +243,12 @@ def _das_body(statics, xl, rxl, txl, repl, apl):
                           keep_rx=keep_rx, keep_tx=keep_tx, method=method,
                           lat=lpx, lat_tx=latl, orientations=oril,
                           planar=planar, interpret=interpret)
+    if fused:  # the same weights, evaluated on this shard's geometry
+        rx_apods, tx_apods, _ = split_fused(fused)
+        im = im_shape or (pil.shape[0], 1, 1)
+        apl = tuple(apl) + tuple(
+            w.reshape(im + w.shape[1:]) for w in dense_weights(
+                rx_apods, tx_apods, pil, prl, oril, lpx, latl, nvl, planar))
     return das(xl, pil, prl, pvl, nvl, t0l, cinvl, fs=fs, apod=apl,
                fmod=fmod, tx_model=tx_model, keep_rx=keep_rx,
                keep_tx=keep_tx, method=method, im_shape=im_shape)
@@ -264,8 +270,9 @@ def das_sharded(mesh: Mesh, x, pi, pr, pv, nv, t0, cinv, *, fs: float,
     (I, 1, 1[, F]) is psum-reduced over rx/tx and stays frame-sharded.
     With keep_rx/keep_tx the kept axis is returned sharded.
 
-    ``apod``: dense broadcastable arrays (the XLA scan) or
-    :class:`~qups_jax.ops.apod.Fused` descriptors (the kernel);
+    ``apod``: dense broadcastable arrays (these send it to the XLA scan)
+    and :class:`~qups_jax.ops.apod.Fused` descriptors (evaluated by the
+    kernel, or on each shard's geometry for the scan);
     ``orientations``/``lat`` as in :func:`~qups_jax.ops.das_fused.das_kernel`.
 
     ``post``: 'cohfac' | 'slsc' — reduce the kept rx band to a coherence
@@ -293,7 +300,6 @@ def das_sharded(mesh: Mesh, x, pi, pr, pv, nv, t0, cinv, *, fs: float,
                           tx_model="plane", method="linear")
         assert img.shape == (16, 1, 1)
     """
-    from ..ops.apod import Fused, split_fused
     from ..ops.das_fused import _planar
 
     apod = tuple(apod if isinstance(apod, (tuple, list)) else (apod,))
@@ -303,11 +309,8 @@ def das_sharded(mesh: Mesh, x, pi, pr, pv, nv, t0, cinv, *, fs: float,
     fused = tuple(a for a in apod if isinstance(a, Fused))
     dense = tuple(a for a in apod if not isinstance(a, Fused))
     kr = keep_rx or post is not None
-    use_kernel = not dense and (interpret or (on_gpu() and covers(
-        x.shape, fused, method, cinv, kr, keep_tx, I=I)))
-    if fused and not use_kernel:
-        raise ValueError("Fused apodization runs in the DAS kernel only; "
-                         "pass Fused.materialize(us) to the XLA scan")
+    kernel = use_kernel(x.shape, apod, method, cinv, kr, keep_tx, I=I,
+                        interpret=interpret)
     _, _, lat_f = split_fused(fused)
     # the per-transmit lateral array shards with its transmits, so the
     # static descriptors drop it
@@ -321,7 +324,7 @@ def das_sharded(mesh: Mesh, x, pi, pr, pv, nv, t0, cinv, *, fs: float,
     apods = tuple(  # (I1', I2', I3', N', M')
         jnp.asarray(a).reshape(np.shape(a) + (1,) * (5 - np.ndim(a)))
         for a in dense)
-    statics = (use_kernel, fused, float(fs), float(fmod), tx_model, kr,
+    statics = (kernel, fused, float(fs), float(fmod), tx_model, kr,
                keep_tx, method, _planar(pi, pr, pv), interpret,
                tuple(im_shape) if im_shape else None)
     return _sharded(mesh, _das_body, statics, x,
@@ -357,11 +360,11 @@ def das_lut_sharded(mesh: Mesh, x, tau_rx, tau_tx, t0, *, fs: float,
     :func:`~qups_jax.ops.das.das_lut`)."""
     x = jnp.asarray(x)
     kr = keep_rx or post is not None
-    use_kernel = interpret or (on_gpu() and covers(
-        x.shape, (), method, None, kr, keep_tx, I=np.shape(tau_rx)[0]))
+    kernel = use_kernel(x.shape, (), method, None, kr, keep_tx,
+                        I=np.shape(tau_rx)[0], interpret=interpret)
     t0 = np.broadcast_to(np.asarray(t0, np.float32).reshape(-1),
                          (x.shape[2],))
-    statics = (use_kernel, float(fs), float(fmod), kr, keep_tx, method,
+    statics = (kernel, float(fs), float(fmod), kr, keep_tx, method,
                interpret)
     return _sharded(mesh, _lut_body, statics, x, [(tau_rx, 1)],
                     [(tau_tx, 1), (t0, 0)], [], keep_rx=keep_rx,

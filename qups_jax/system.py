@@ -622,10 +622,6 @@ class UltrasoundSystem:
                                           else c0))
             apod_t = tuple(apod if isinstance(apod, (tuple, list))
                            else (apod,))
-            if not self._use_kernel("auto", chd.data.shape, apod_t, method,
-                                    cinv, True, False):
-                apod_t = tuple(a.materialize(self) if isinstance(a, Fused)
-                               else a for a in apod_t)
             img = das_sharded(
                 mesh, chd.data, self._pixels(), self.rx.positions().T,
                 pv, nv, chd.t0_host, cinv, fs=float(chd.fs),
@@ -644,15 +640,15 @@ class UltrasoundSystem:
 
     def _use_kernel(self, kernel, x_shape, apod_t, method, cinv, keep_rx,
                     keep_tx) -> bool:
-        """THE DAS-family dispatch: the fused kernel on a GPU for the
-        inputs it covers (:func:`qups_jax.ops.das_fused.covers`), the XLA
-        scan otherwise or under ``kernel='xla'``."""
+        """``kernel='auto'``: the shared dispatch
+        (:func:`qups_jax.ops.das_fused.use_kernel`); ``'xla'``: the XLA
+        scan, the reference path."""
         if kernel not in ("auto", "xla"):
             raise ValueError(f"kernel must be 'auto' or 'xla', not {kernel!r}")
-        from .ops.das_fused import covers
-        return (kernel == "auto" and on_gpu()
-                and covers(x_shape, apod_t, method, cinv, keep_rx, keep_tx,
-                           I=self.scan.npix))
+        from .ops.das_fused import use_kernel
+        return kernel == "auto" and use_kernel(
+            x_shape, apod_t, method, cinv, keep_rx, keep_tx,
+            I=self.scan.npix)
 
     def _orientations(self) -> np.ndarray:
         """(2, N) [sin, cos] of the receive elements' azimuth."""

@@ -56,7 +56,7 @@ def test_kernel_choice_on_gpu(case, kernel_calls, monkeypatch):
     """On a GPU the kernel serves the inputs it covers and the XLA scan
     the rest; both give the same image."""
     us, chd = small_system()
-    monkeypatch.setattr("qups_jax.system.on_gpu", lambda: True)
+    monkeypatch.setattr("qups_jax.ops.das_fused.on_gpu", lambda: True)
     kw = {"keep_rx": dict(keep_rx=True),
           "fused_apod": dict(apod=(q.Fused("aperture_growth", f=1.0),)),
           "cmap": dict(c0=np.full(us.scan.shape, 1540.0, np.float32)),
@@ -68,19 +68,37 @@ def test_kernel_choice_on_gpu(case, kernel_calls, monkeypatch):
             kw = dict(apod=us.ap_aperture_growth(f=1.0))
         got = us.bfDASLUT(chd, tau_rx, tau_tx, **kw)
         want_calls = ["das_lut_kernel"] if case == "table" else []
-        monkeypatch.setattr("qups_jax.system.on_gpu", lambda: False)
+        monkeypatch.setattr("qups_jax.ops.das_fused.on_gpu", lambda: False)
         ref = us.bfDASLUT(chd, tau_rx, tau_tx, **kw)
     else:
         got = us.DAS(chd, **kw)
         want_calls = ["das_kernel"] if case in (
             "plain", "keep_rx", "fused_apod", "cmap") else []
-        monkeypatch.setattr("qups_jax.system.on_gpu", lambda: False)
+        monkeypatch.setattr("qups_jax.ops.das_fused.on_gpu", lambda: False)
         ref = us.DAS(chd, **{**kw, "apod": us.ap_aperture_growth(f=1.0)}
                      if case == "fused_apod" else kw)
     assert kernel_calls == want_calls
     got, ref = np.asarray(got), np.asarray(ref)
     assert got.shape == ref.shape
     assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+def test_use_kernel(monkeypatch):
+    """The one dispatch: covered inputs take the kernel on a GPU or when a
+    test asks for the interpreter; dense apodization, an unknown sampler
+    or the CPU take the XLA scan."""
+    from qups_jax.ops.apod import Fused
+    shape = (256, 16, 4)
+    fused = (Fused("aperture_growth", f=1.5),)
+    dense = (np.ones((1, 1, 1, 16, 1), np.float32),)
+    assert not das_fused.use_kernel(shape, fused, "cubic", I=64)
+    assert das_fused.use_kernel(shape, fused, "cubic", I=64, interpret=True)
+    assert not das_fused.use_kernel(shape, dense, "cubic", I=64,
+                                    interpret=True)
+    monkeypatch.setattr(das_fused, "on_gpu", lambda: True)
+    assert das_fused.use_kernel(shape, fused, "linear", keep_rx=True, I=64)
+    assert not das_fused.use_kernel(shape, dense, "linear", I=64)
+    assert not das_fused.use_kernel(shape, (), "cubic2x", I=64)
 
 
 def test_cpu_takes_xla(kernel_calls):

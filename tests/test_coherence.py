@@ -123,3 +123,25 @@ def test_coherence_image_mesh_matches_fallback():
         scale = max(np.abs(ref).max(), 1e-12)
         assert np.abs(got - ref).max() / scale < 5e-3, (post, np.abs(
             got - ref).max() / scale)
+
+
+def test_coherence_image_mesh_fused_apod():
+    """coherence_image(mesh=) takes Fused apodization on any platform and
+    agrees with the single-device path, which materializes it."""
+    import jax
+    import qups_jax as q
+    from qups_jax.parallel import make_mesh
+
+    xdc = q.TransducerArray(numel=8, pitch=0.3e-3, fc=3e6)
+    us = q.UltrasoundSystem(
+        tx=xdc, rx=xdc, seq=q.Sequence(type="FSA", numpulse=8),
+        scan=q.ScanCartesian(x=np.linspace(-2e-3, 2e-3, 8),
+                             z=np.linspace(18e-3, 22e-3, 8)),
+        fs=12e6)
+    chd = us.greens(q.Scatterers(pos=[[0.0], [0.0], [20e-3]], c0=1540.0))
+    apod = q.Fused("aperture_growth", f=1.0)
+    mesh = make_mesh(jax.devices()[:2], axes=("rx", "tx"))
+    ref = np.asarray(us.coherence_image(chd, apod=apod))
+    got = np.asarray(us.coherence_image(chd, apod=apod, mesh=mesh))
+    assert ref.shape == got.shape == us.scan.shape
+    assert np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-12) < 5e-3

@@ -500,7 +500,8 @@ def test_multi_frame_dims_fold():
 @pytest.mark.parametrize("keep", ["sum", "rx", "tx"])
 @pytest.mark.parametrize("method", ["nearest", "linear", "cubic", "lanczos3"])
 @pytest.mark.parametrize("model", ["plane", "diverging", "virtual"])
-def test_kernel_matrix(model, method, keep):
+def test_kernel_matrix(model, method, keep, monkeypatch):
+    monkeypatch.setattr(dk, "BLOCK", 64)
     x, pi, pr, pv, nv, _ = problem(T=192, N=8, M=4, I1=8, I2=40)
     if model != "plane":
         pv = np.stack([np.linspace(-3e-3, 3e-3, 4), np.zeros(4),
@@ -511,7 +512,7 @@ def test_kernel_matrix(model, method, keep):
               keep_tx=keep == "tx")
     ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, **kw))
     got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0,
-                                interpret=True, block=64, **kw))
+                                interpret=True, **kw))
     assert got.shape == ref.shape
     assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
 
@@ -528,7 +529,7 @@ def test_per_pixel_sound_speed():
     assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
 
 
-def test_block_padding_and_chunks():
+def test_block_padding_and_chunks(monkeypatch):
     """A pixel count that is no multiple of the block, and a transmit
     count whose chunk falls to 1 (M=5), give the same image for every
     launch configuration."""
@@ -536,10 +537,11 @@ def test_block_padding_and_chunks():
     t0 = np.zeros(5, np.float32)
     kw = dict(fs=4e6, tx_model="plane", method="linear")
     ref = np.asarray(das(x, pi, pr, pv, nv, t0, 1 / 1540.0, **kw))
-    for block, chunk in ((32, None), (64, 1), (128, 5)):
+    for block, chunks in ((32, dk.CHUNKS), (64, (1,)), (128, (5, 1))):
+        monkeypatch.setattr(dk, "BLOCK", block)
+        monkeypatch.setattr(dk, "CHUNKS", chunks)
         got = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0,
-                                    interpret=True, block=block,
-                                    chunk=chunk, **kw))
+                                    interpret=True, **kw))
         assert got.shape == ref.shape == (133, 1, 1)
         assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
 

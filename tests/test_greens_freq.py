@@ -77,6 +77,23 @@ def test_vs_numpy_oracle():
     assert err < 2e-4, err
 
 
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_gemm_precision_lowered_for_cuda(precision):
+    """The engine's GEMMs, lowered for a CUDA device from the CPU, carry the
+    precision asked for: 'highest' (the default) keeps full f32, where a
+    float32 dot at DEFAULT runs in TF32 on the GPU."""
+    import jax
+    kern, ps, amp, pn, pv, kw = problem()
+    f = jax.jit(lambda: greens_freq(kern, ps, amp, pn, pv, rtol=0.0,
+                                    precision=precision, **kw))
+    text = jax.export.export(f, platforms=["cuda"])().mlir_module()
+    dots = [ln for ln in text.splitlines()
+            if "stablehlo.dot_general" in ln]
+    assert dots
+    assert all(("precision = [HIGHEST, HIGHEST]" in ln)
+               == (precision == "highest") for ln in dots)
+
+
 @pytest.mark.parametrize("case", ["odd_sizes", "many_scatterers",
                                   "attenuation", "bf16", "subelements"])
 def test_engine_cases_vs_numpy_oracle(case):

@@ -423,6 +423,30 @@ def test_das_sharded_pallas_fused_apod():
     assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
 
 
+@pytest.mark.parametrize("keep_rx", [False, True])
+def test_das_sharded_fused_apod_xla(keep_rx):
+    """Without the kernel (the CPU) the sharded scan evaluates Fused
+    descriptors, receive and transmit, on each shard's geometry; reference
+    = the unsharded kernel in the interpreter."""
+    import jax
+    from qups_jax.parallel import make_mesh, das_sharded
+    from qups_jax.ops.apod import Fused
+    from qups_jax.ops.das_fused import das_kernel
+
+    x, pi, pr, pv, nv, t0 = _shard_problem()
+    mesh = make_mesh(jax.devices()[:8], axes=("rx", "tx"), shape=(4, 2))
+    apod = (Fused("aperture_growth", f=1.0),
+            Fused("tx_parallelogram", xlo=-6e-3, xhi=6e-3))
+    kw = dict(fs=4e6, tx_model="plane", method="linear", apod=apod,
+              keep_rx=keep_rx)
+    ref = np.asarray(das_kernel(x, pi, pr, pv, nv, t0, 1 / 1540.0,
+                                interpret=True, **kw))
+    got = np.asarray(das_sharded(mesh, x, pi, pr, pv, nv, t0, 1 / 1540.0,
+                                 im_shape=(16, 128, 1), **kw))
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
+
+
 @pytest.mark.full
 def test_das_sharded_pallas_frames_iq_fmod():
     """Frame batches + IQ data + in-kernel fmod on a 3-axis
